@@ -1,0 +1,149 @@
+"""PegasusLinear — the paper's MatMul-as-primitives (port of
+``repro.core.amm``).
+
+Weighted Aggregation (paper §5) decomposes ``y = x @ W + b`` as Partition
+(groups of ``v`` features) → Map (``LUT_k[fuzzy_index(x_k)]``) → SumReduce
+(``Σ_k``, ``+ b``). The multiplications happen offline when the LUT is
+built; inference is comparisons, lookups and adds.
+
+Two plain apply paths live here; the hand-written CUDA kernels are in
+:mod:`repro_torch.kernels.fuzzy_lut`:
+  * ``apply_gather`` — descent + row gather + ascending-k sum (the oracle
+    order, see :mod:`repro_torch.kernels.fuzzy_lut.ref`),
+  * ``apply_onehot`` — one-hot × LUT as one fp32 matmul (TF32 is switched
+    off where the engine builds its plans).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fuzzy_lut.ref import lut_gather_sum
+
+from .fuzzy_tree import FuzzyTree, fit_tree, hard_index_stacked, stack_trees
+from .lut import build_matmul_lut
+from .quantization import choose_qspec, fake_quant_spec
+
+__all__ = ["PegasusLinear", "init_pegasus_linear", "apply_gather", "apply_onehot"]
+
+
+@dataclasses.dataclass
+class PegasusLinear:
+    """Parameters of one Pegasus-approximated linear layer.
+
+    Attributes:
+      trees: stacked fuzzy trees — features ``[K, 2^d - 1]`` int32,
+        thresholds ``[K, 2^d - 1]`` f32, centroids ``[K, C, v]`` f32.
+      lut: ``[K, C, N]`` precomputed partial products.
+      bias: ``[N]`` or None.
+      group_size: the Partition width ``v``.
+    """
+
+    trees: FuzzyTree
+    lut: torch.Tensor
+    bias: torch.Tensor | None
+    group_size: int = 0
+
+    @property
+    def num_groups(self) -> int:
+        return self.lut.shape[0]
+
+    @property
+    def num_centroids(self) -> int:
+        return self.lut.shape[1]
+
+    @property
+    def out_features(self) -> int:
+        return self.lut.shape[2]
+
+    @property
+    def in_features(self) -> int:
+        return self.num_groups * self.group_size
+
+    @property
+    def device(self) -> torch.device:
+        return self.lut.device
+
+    def to(self, device) -> "PegasusLinear":
+        return PegasusLinear(
+            trees=self.trees.to(device), lut=self.lut.to(device),
+            bias=None if self.bias is None else self.bias.to(device),
+            group_size=self.group_size)
+
+
+def init_pegasus_linear(
+    weight: np.ndarray,
+    bias: np.ndarray | None,
+    calibration: np.ndarray,
+    *,
+    group_size: int = 4,
+    depth: int = 4,
+    lut_bits: int | None = 16,
+    lut_dtype: torch.dtype = torch.float32,
+    act_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    device: str | torch.device = "cuda",
+) -> PegasusLinear:
+    """Build a PegasusLinear from a trained dense layer + calibration acts.
+
+    ``weight`` ``[D, N]``, ``bias`` ``[N]`` or None, ``calibration``
+    ``[S, D]`` (numpy; the trees are fit in numpy, bit-identical to the
+    reference's). ``act_fn`` maps the stacked centroids ``[K, C, v]``
+    before the matmul (Basic Primitive Fusion: ``LUT = act(c) @ W``);
+    ``lut_bits`` stores the LUT on that fixed-point grid (None keeps f32).
+    """
+    dev = resolve_device(device)
+    weight = np.asarray(weight, np.float32)
+    calibration = np.asarray(calibration, np.float32)
+    d, _ = weight.shape
+    if d % group_size:
+        raise ValueError(f"D={d} not divisible by group v={group_size}")
+    k = d // group_size
+    stacked = stack_trees([
+        fit_tree(calibration[:, g * group_size : (g + 1) * group_size], depth)
+        for g in range(k)
+    ]).to(dev)
+    cents = stacked.centroids
+    if act_fn is not None:
+        cents = act_fn(cents)
+    lut = build_matmul_lut(cents, torch.as_tensor(weight, device=dev), group_size)
+    if lut_bits is not None:
+        lut = fake_quant_spec(lut, choose_qspec(lut, bits=lut_bits))
+    return PegasusLinear(
+        trees=stacked,
+        lut=lut.to(lut_dtype),
+        bias=None if bias is None else torch.as_tensor(
+            np.asarray(bias, np.float32), device=dev),
+        group_size=group_size,
+    )
+
+
+def _group(x: torch.Tensor, k: int, v: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], k, v)
+
+
+def apply_gather(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
+    """Reference path: hard index + row gather + ascending-k sum."""
+    xg = _group(x.to(torch.float32), p.num_groups, p.group_size)
+    idx = hard_index_stacked(p.trees, xg).reshape(-1, p.num_groups)
+    y = lut_gather_sum(p.lut, idx).reshape(*x.shape[:-1], p.out_features)
+    if p.bias is not None:
+        y = y + p.bias
+    return y
+
+
+def apply_onehot(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
+    """SumReduce(Map(...)) as ONE matmul: ``onehot(idx) [.., K·C]`` times
+    ``LUT [K·C, N]``."""
+    xg = _group(x.to(torch.float32), p.num_groups, p.group_size)
+    idx = hard_index_stacked(p.trees, xg)                       # [..., K]
+    oh = torch.nn.functional.one_hot(idx, p.num_centroids).to(p.lut.dtype)
+    oh = oh.reshape(*x.shape[:-1], p.num_groups * p.num_centroids)
+    y = (oh @ p.lut.reshape(-1, p.out_features)).to(torch.float32)
+    if p.bias is not None:
+        y = y + p.bias
+    return y

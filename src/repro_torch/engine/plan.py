@@ -1,0 +1,519 @@
+"""ExecutionPlan: compile a pegasusified model once, call it many times
+(port of ``repro.engine.plan``, sequential family).
+
+  * :class:`CompiledBank` — one ``PegasusLinear`` plus every operand the
+    CUDA kernels take (int32 features, thresholds, f32 LUT, int8 LUT +
+    per-group scales), built once on the plan's device.
+  * :class:`FusedBankStack` / :func:`fuse_banks` — Cross-bank Primitive
+    Fusion: a maximal run of compatible consecutive banks runs as ONE
+    stacked kernel launch. Its geometry is checked once, at build, and the
+    call path never catches an error or falls back to the per-bank chain.
+  * :class:`ExecutionPlan` — the whole model. A call pads the batch up to
+    its bucket (powers of two up to 4096, multiples of 4096 beyond), runs
+    the forward eagerly on the plan's device and slices the padding off.
+    ``traces`` counts first uses of a ``(backend, bucket)`` — the slot
+    where a CUDA graph would be captured.
+
+Backends are semantics-identical up to quantization:
+  ``gather``    — descent + row gather + ascending-k sum (plain PyTorch)
+  ``onehot``    — one-hot × LUT fp32 matmul (TF32 off)
+  ``kernel``    — the f32 CUDA kernels
+  ``kernel_q8`` — the int8 CUDA kernels over the memoized int8 LUT
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.amm import PegasusLinear, apply_gather, apply_onehot
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fuzzy_lut.kernel import fuzzy_lut, fuzzy_lut_stack, stack_fits
+from repro_torch.kernels.fuzzy_lut.ops import padded_layout
+from repro_torch.kernels.fuzzy_lut.quantized import fuzzy_lut_q8, fuzzy_lut_stack_q8
+
+__all__ = [
+    "BACKENDS",
+    "DEFAULT_BUCKETS",
+    "DEFAULT_FUSE_NMAX_CAP",
+    "STATS",
+    "CompiledBank",
+    "EngineStats",
+    "ExecutionPlan",
+    "FusedBankStack",
+    "bucket_batch",
+    "bucket_chunks",
+    "build_plan",
+    "fuse_banks",
+]
+
+# Per-group cap on a fused stack's padded output width: one wide bank
+# joining a narrow run would pad EVERY member's LUT rows to its width.
+DEFAULT_FUSE_NMAX_CAP = 2048
+
+BACKENDS = ("gather", "onehot", "kernel", "kernel_q8")
+
+DEFAULT_BUCKETS: tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def bucket_batch(b: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
+    """Round a batch size up to its bucket (smallest bucket ≥ b; beyond the
+    largest, the next multiple of it)."""
+    if b <= 0:
+        raise ValueError(f"batch must be positive, got {b}")
+    for s in sorted(buckets):
+        if b <= s:
+            return int(s)
+    top = int(max(buckets))
+    return -(-b // top) * top
+
+
+def bucket_chunks(
+    total: int,
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+    max_batch: int | None = None,
+) -> list[int]:
+    """Split ``total`` coalesced flows into bucket-aligned micro-batch sizes.
+
+    Full chunks are exact bucket sizes; the tail dispatches either as one
+    padded chunk or as an exact bucket plus a smaller padded chunk —
+    whichever wastes fewer padded rows.
+    """
+    if total <= 0:
+        raise ValueError(f"total must be positive, got {total}")
+    bs = sorted(int(b) for b in buckets)
+    if max_batch is None:
+        top = bs[-1]
+    else:
+        fits = [b for b in bs if b <= max_batch]
+        top = fits[-1] if fits else bs[0]
+    sizes = []
+    remaining = total
+    while remaining > top:
+        sizes.append(top)
+        remaining -= top
+    if remaining:
+        fit = max((b for b in bs if b <= remaining), default=0)
+        if 0 < fit < remaining:
+            pad_whole = bucket_batch(remaining, bs) - remaining
+            rest = remaining - fit
+            pad_split = bucket_batch(rest, bs) - rest
+            if pad_split < pad_whole:
+                sizes.append(fit)
+                remaining = rest
+        sizes.append(remaining)
+    return sizes
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Global counters: layout work happens at plan build only, and a
+    ``(backend, bucket)`` is first used once per plan."""
+
+    layout_builds: int = 0   # CompiledBank / FusedBankStack layout preparations
+    plan_builds: int = 0     # ExecutionPlan compilations
+    bank_calls: int = 0      # bank applications (a fused stack counts its banks)
+    jit_traces: int = 0      # first uses of a (backend, bucket) per plan
+    jit_calls: int = 0       # plan dispatches
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+STATS = EngineStats()
+
+
+class CompiledBank:
+    """One PegasusLinear with its kernel operands built once on ``device``.
+
+    ``self.layer`` is a replica of the source layer on the plan's device
+    (a new instance), so a plan never pins the caller's model object.
+    """
+
+    def __init__(self, layer: PegasusLinear, *, device: torch.device):
+        self.layer = layer.to(device)
+        self.features, self.thr, self.lut, _ = padded_layout(self.layer, quant=False)
+        _, _, self.lut_q8, self.scales = padded_layout(self.layer, quant=True)
+        STATS.layout_builds += 1
+
+    def apply(self, x: torch.Tensor, backend: str) -> torch.Tensor:
+        STATS.bank_calls += 1
+        if backend == "gather":
+            return apply_gather(self.layer, x)
+        if backend == "onehot":
+            return apply_onehot(self.layer, x)
+        if backend == "kernel":
+            return self._apply_kernel(x, quant=False)
+        if backend == "kernel_q8":
+            return self._apply_kernel(x, quant=True)
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+
+    def _apply_kernel(self, x: torch.Tensor, quant: bool) -> torch.Tensor:
+        p = self.layer
+        lead = x.shape[:-1]
+        xg = x.reshape(-1, p.num_groups, p.group_size).to(torch.float32).contiguous()
+        if quant:
+            y = fuzzy_lut_q8(xg, self.features, self.thr, self.lut_q8, self.scales)
+        else:
+            y = fuzzy_lut(xg, self.features, self.thr, self.lut)
+        if p.bias is not None:
+            y = y + p.bias
+        return y.reshape(*lead, p.out_features)
+
+
+# ---------------------------------------------------------------------------
+# Cross-bank Primitive Fusion: compatible consecutive banks → one kernel
+# ---------------------------------------------------------------------------
+
+
+class FusedBankStack:
+    """A run of L compatible banks compiled into ONE stacked kernel.
+
+    Each bank's operands are padded to the group's ``(Kmax, Nmax)`` —
+    +inf thresholds and zero LUT rows on padded groups descend to leaf 0 and
+    add nothing — then stacked along a leading L axis. ``__init__`` checks
+    the stack's geometry and raises ``ValueError`` on one the kernel cannot
+    take; ``apply`` on ``kernel``/``kernel_q8`` then launches the stacked
+    kernel with no fallback. ``gather``/``onehot`` run the member banks in
+    turn, which is the same function.
+    """
+
+    def __init__(self, banks: Sequence[CompiledBank]):
+        if len(banks) < 2:
+            raise ValueError("a fused stack needs at least 2 banks")
+        for a, b in zip(banks, banks[1:]):
+            if not _fusable(a, b):
+                raise ValueError("banks are not shape-compatible for fusion")
+        self.banks = list(banks)
+        layers = [b.layer for b in banks]
+        self.v = layers[0].group_size
+        self.ks = tuple(l.num_groups for l in layers)
+        self.n_out = layers[-1].out_features
+        kmax = max(self.ks)
+        nmax = max(l.out_features for l in layers)
+        if not stack_fits(self.ks[0], self.v, kmax, nmax, len(layers)):
+            raise ValueError(
+                f"stack of {len(layers)} banks (Kmax={kmax}, Nmax={nmax}) "
+                "exceeds the stacked kernel's layer count or shared memory")
+        c = layers[0].num_centroids
+        nl, dev = len(layers), layers[0].device
+        feats = torch.zeros((nl, kmax, c - 1), dtype=torch.int32, device=dev)
+        thr = torch.full((nl, kmax, c - 1), float("inf"), device=dev)
+        lut = torch.zeros((nl, kmax, c, nmax), device=dev)
+        lut_q8 = torch.zeros((nl, kmax, c, nmax), dtype=torch.int8, device=dev)
+        scales = torch.zeros((nl, kmax), device=dev)
+        bias = torch.zeros((nl, nmax), device=dev)
+        for l, bank in enumerate(banks):
+            k, n = bank.layer.num_groups, bank.layer.out_features
+            feats[l, :k] = bank.features
+            thr[l, :k] = bank.thr
+            lut[l, :k, :, :n] = bank.lut
+            lut_q8[l, :k, :, :n] = bank.lut_q8
+            scales[l, :k] = bank.scales
+            if bank.layer.bias is not None:
+                bias[l, :n] = bank.layer.bias
+        self.features, self.thr = feats, thr
+        self.lut, self.lut_q8 = lut, lut_q8
+        self.scales, self.bias = scales, bias
+        STATS.layout_builds += 1
+
+    def apply(self, x: torch.Tensor, backend: str) -> torch.Tensor:
+        if backend not in ("kernel", "kernel_q8"):
+            h = x
+            for bank in self.banks:
+                h = bank.apply(h, backend)
+            return h
+        lead = x.shape[:-1]
+        xg = x.reshape(-1, self.ks[0], self.v).to(torch.float32).contiguous()
+        if backend == "kernel":
+            y = fuzzy_lut_stack(xg, self.features, self.thr, self.lut, self.bias,
+                                ks=self.ks, n_out=self.n_out)
+        else:
+            y = fuzzy_lut_stack_q8(xg, self.features, self.thr, self.lut_q8,
+                                   self.scales, self.bias, ks=self.ks,
+                                   n_out=self.n_out)
+        STATS.bank_calls += len(self.banks)
+        return y.reshape(*lead, self.n_out)
+
+
+def _fusable(a: CompiledBank, b: CompiledBank) -> bool:
+    """Can bank ``b`` consume bank ``a``'s output inside one stacked kernel?
+    Same partition width and centroid count, exact output→input chaining."""
+    return (a.layer.group_size == b.layer.group_size
+            and a.layer.num_centroids == b.layer.num_centroids
+            and a.layer.out_features == b.layer.in_features)
+
+
+def _balloons(run: Sequence[CompiledBank], bank: CompiledBank,
+              nmax_cap: int | None) -> bool:
+    """Would adding ``bank`` to ``run`` pad some member's output rows past
+    ``nmax_cap``? Equal-width banks above the cap add no padding."""
+    if nmax_cap is None:
+        return False
+    ns = [b.layer.out_features for b in run] + [bank.layer.out_features]
+    nmax = max(ns)
+    return nmax > nmax_cap and min(ns) < nmax
+
+
+def _fits(run: Sequence[CompiledBank], bank: CompiledBank) -> bool:
+    """Would the stacked kernel still take ``run`` with ``bank`` added?"""
+    members = [*run, bank]
+    return stack_fits(members[0].layer.num_groups, bank.layer.group_size,
+                      max(b.layer.num_groups for b in members),
+                      max(b.layer.out_features for b in members), len(members))
+
+
+def fuse_banks(banks: Sequence[CompiledBank], *,
+               nmax_cap: int | None = DEFAULT_FUSE_NMAX_CAP) -> list:
+    """Group maximal runs of compatible consecutive banks into
+    :class:`FusedBankStack` steps; lone banks pass through. A run splits
+    where the next bank would balloon its padding past ``nmax_cap`` or
+    leave the stacked kernel's limits."""
+    steps: list = []
+    run: list[CompiledBank] = []
+
+    def flush():
+        if len(run) >= 2:
+            steps.append(FusedBankStack(run))
+        else:
+            steps.extend(run)
+        run.clear()
+
+    for bank in banks:
+        if run and (not _fusable(run[-1], bank)
+                    or _balloons(run, bank, nmax_cap) or not _fits(run, bank)):
+            flush()
+        run.append(bank)
+    flush()
+    return steps
+
+
+# ---------------------------------------------------------------------------
+# ExecutionPlan
+# ---------------------------------------------------------------------------
+
+
+class ExecutionPlan:
+    """Compiled model: banks + structural forward, bound to one device.
+
+    ``forward(apply, state, *inputs)`` walks the model's steps; ``__call__``
+    pads the batch to its bucket, runs the forward with the chosen backend
+    and slices the padding off.
+    """
+
+    def __init__(self, banks: Sequence[CompiledBank],
+                 forward: Callable[..., torch.Tensor], state: Any, *,
+                 device: torch.device, backend: str = "onehot",
+                 family: str = "sequential",
+                 bucket_sizes: Sequence[int] | None = None):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+        self.banks = list(banks)
+        self._forward = forward
+        self._state = state
+        self.device = device
+        self.backend = backend
+        self.family = family
+        self.buckets = tuple(sorted(bucket_sizes)) if bucket_sizes else DEFAULT_BUCKETS
+        self.fused_groups = 0
+        self.fused_banks = 0
+        self.fused_stacks: list = []
+        # counters: the plan may be called from several threads
+        self._lock = threading.Lock()
+        self._traces = 0                                    # guarded-by: _lock
+        self._traced: set[tuple[str, int]] = set()          # guarded-by: _lock
+        self._rows: dict[tuple[str, int], list] = {}        # guarded-by: _lock
+        self._calls = 0                                     # guarded-by: _lock
+        STATS.plan_builds += 1
+
+    @property
+    def trace_count(self) -> int:
+        with self._lock:
+            return self._traces
+
+    @property
+    def compiled_buckets(self) -> set:
+        with self._lock:
+            return set(self._traced)
+
+    def _padded(self, x, bucket: int) -> torch.Tensor:
+        x = torch.as_tensor(x, device=self.device)
+        b = x.shape[0]
+        if b == bucket:
+            return x
+        out = torch.zeros((bucket, *x.shape[1:]), dtype=x.dtype, device=self.device)
+        out[:b] = x
+        return out
+
+    def __call__(self, *inputs, backend: str | None = None) -> torch.Tensor:
+        be = self.backend if backend is None else backend
+        if be not in BACKENDS:
+            raise ValueError(f"unknown backend {be!r}; expected one of {BACKENDS}")
+        b = int(np.shape(inputs[0])[0])
+        bucket = bucket_batch(b, self.buckets)
+        padded = tuple(self._padded(x, bucket) for x in inputs)
+        STATS.jit_calls += 1
+        with self._lock:
+            self._calls += 1
+            if (be, bucket) not in self._traced:
+                self._traced.add((be, bucket))
+                self._traces += 1
+                STATS.jit_traces += 1
+            rows = self._rows.setdefault((be, bucket), [0, 0])
+            rows[0] += b
+            rows[1] += bucket
+        with torch.no_grad():
+            y = self._forward(lambda step, x: step.apply(x, be), self._state, *padded)
+        return y if bucket == b else y[:b]
+
+    def _lut_cell_stats(self) -> tuple[int, int]:
+        """(useful, dispatched) LUT cells across the plan's kernel steps."""
+        fused_members = {id(b) for s in self.fused_stacks for b in s.banks}
+        useful = dispatched = 0
+        for s in self.fused_stacks:
+            c = s.banks[0].layer.num_centroids
+            dispatched += len(s.banks) * max(s.ks) * c * int(s.lut.shape[-1])
+            useful += sum(b.layer.num_groups * c * b.layer.out_features
+                          for b in s.banks)
+        for b in self.banks:
+            if id(b) not in fused_members:
+                cells = (b.layer.num_groups * b.layer.num_centroids
+                         * b.layer.out_features)
+                useful += cells
+                dispatched += cells
+        return useful, dispatched
+
+    def compile_stats(self) -> dict:
+        """Per-plan dispatch counters (the serving stats surface)."""
+        with self._lock:
+            traces = self._traces
+            jit_calls = self._calls
+            buckets = sorted(self._traced)
+            rows = {k: list(v) for k, v in self._rows.items()}
+        useful, dispatched = self._lut_cell_stats()
+        fused_eff = useful / dispatched if dispatched else 1.0
+
+        def _waste(be: str, req: int, disp: int) -> float:
+            if not disp:
+                return 0.0
+            eff = fused_eff if be in ("kernel", "kernel_q8") else 1.0
+            return round(1.0 - (req / disp) * eff, 4)
+
+        return {
+            "traces": traces,
+            "jit_calls": jit_calls,
+            "bucket_hits": jit_calls - traces,
+            "buckets": buckets,
+            "pad_waste": {
+                f"{be}@{bucket}": _waste(be, req, disp)
+                for (be, bucket), (req, disp) in sorted(rows.items())
+            },
+            "pad_waste_fused": {
+                f"group{g}": {
+                    "layers": len(s.banks),
+                    "kmax": max(s.ks),
+                    "nmax": int(s.lut.shape[-1]),
+                    "frac": round(
+                        1.0 - sum(b.layer.num_groups * b.layer.num_centroids
+                                  * b.layer.out_features for b in s.banks)
+                        / (len(s.banks) * max(s.ks)
+                           * s.banks[0].layer.num_centroids
+                           * int(s.lut.shape[-1])), 4),
+                }
+                for g, s in enumerate(self.fused_stacks)
+            },
+            "fused_groups": self.fused_groups,
+            "fused_banks": self.fused_banks,
+            "devices": 1,
+        }
+
+    @property
+    def num_banks(self) -> int:
+        return len(self.banks)
+
+    def bank_inputs(self, *inputs, backend: str = "gather") -> list:
+        """Forward once (unpadded), recording the first activation each
+        bank receives; fused steps are walked per bank."""
+        rec: dict[int, torch.Tensor] = {}
+
+        def apply(step, x):
+            if isinstance(step, FusedBankStack):
+                h = x
+                for member in step.banks:
+                    rec.setdefault(id(member), h)
+                    h = member.apply(h, backend)
+                return h
+            rec.setdefault(id(step), x)
+            return step.apply(x, backend)
+
+        with torch.no_grad():
+            self._forward(apply, self._state,
+                          *(torch.as_tensor(x, device=self.device) for x in inputs))
+        return [rec.get(id(b)) for b in self.banks]
+
+    def table_bytes(self) -> int:
+        """Total LUT bytes held by the plan's banks (f32 + int8 layouts)."""
+        return sum(b.lut.numel() * b.lut.element_size()
+                   + b.lut_q8.numel() * b.lut_q8.element_size() for b in self.banks)
+
+
+def _sequential_plan(layers, backend, buckets, fuse, nmax_cap, device) -> ExecutionPlan:
+    banks = [CompiledBank(l, device=device) for l in layers]
+    steps = fuse_banks(banks, nmax_cap=nmax_cap) if fuse else list(banks)
+
+    def forward(apply, state, x):
+        h = x.to(torch.float32)
+        for step in state["steps"]:
+            h = apply(step, h)
+        return h
+
+    plan = ExecutionPlan(banks, forward, {"steps": steps}, device=device,
+                         backend=backend, family="sequential", bucket_sizes=buckets)
+    for s in steps:
+        if isinstance(s, FusedBankStack):
+            plan.fused_groups += 1
+            plan.fused_banks += len(s.banks)
+            plan.fused_stacks.append(s)
+    return plan
+
+
+def build_plan(
+    model: Any,
+    *,
+    backend: str = "onehot",
+    bucket_sizes: Sequence[int] | None = None,
+    fuse: bool = True,
+    fuse_nmax_cap: int | None = DEFAULT_FUSE_NMAX_CAP,
+    device: str | torch.device = "cuda",
+) -> ExecutionPlan:
+    """Compile a pegasusified model into an ExecutionPlan on ``device``.
+
+    ``model`` is a ``PegasusLinear`` or a list of them (a sequential stack:
+    MLP-B). The other families (RNN, CNN, CNN-L) come with a later slice of
+    the port and raise ``TypeError``. ``backend`` is the default of
+    ``plan(x)`` calls; ``fuse=False`` disables cross-bank fusion;
+    ``fuse_nmax_cap`` bounds a fused group's padded output width. The plan
+    freezes the banks at build; it runs on the GPU unless ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    # the onehot backend is an fp32 matmul: TF32 would cost it fp32 parity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("could not switch TF32 matmuls off")
+    if isinstance(model, PegasusLinear):
+        model = [model]
+    if not (isinstance(model, (list, tuple))
+            and all(isinstance(l, PegasusLinear) for l in model)):
+        raise TypeError(
+            f"cannot compile {type(model).__name__}: this slice of the port "
+            "compiles PegasusLinear bank lists (MLP-B); the RNN, CNN and "
+            "CNN-L plans come with a later slice")
+    return _sequential_plan(model, backend, bucket_sizes, fuse, fuse_nmax_cap, dev)

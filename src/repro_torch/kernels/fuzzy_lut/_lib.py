@@ -1,0 +1,160 @@
+"""Build and load the fuzzy-LUT CUDA kernels (``csrc/*.cu``).
+
+Each ``.cu`` source compiles with ``nvcc`` into its own shared library with
+a plain C interface, loaded through ``ctypes``. The build happens at first
+use, from the sources in this package only, into ``build/kernels/`` at the
+repository root (listed in ``.gitignore``); a library's file name carries a
+hash of its sources and flags, so an edited source is never served by a
+stale build. All sources compile in parallel, one ``nvcc`` each.
+
+Nothing here falls back: without CUDA or ``nvcc`` :func:`library` raises.
+Each wrapper counts its launches in :data:`LAUNCHES` — one per kernel
+launch, nowhere else — so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["LAUNCHES", "MAX_L", "StackGeom", "build_all", "build_log",
+           "check_status", "library", "reset_launches"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = {"bank": "fuzzy_lut_bank.cu", "stack": "fuzzy_lut_stack.cu"}
+HEADERS = ("fuzzy_lut.cuh",)
+
+# Must equal MAX_L in csrc/fuzzy_lut_stack.cu.
+MAX_L = 16
+
+LAUNCHES = {"fuzzy_lut": 0, "fuzzy_lut_q8": 0, "fuzzy_lut_stack": 0,
+            "fuzzy_lut_stack_q8": 0}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOG: dict[str, str] = {}
+_LOCK = threading.Lock()
+
+
+class StackGeom(ctypes.Structure):
+    """By-value geometry of a fused stack; mirrors ``struct StackGeom``."""
+
+    _fields_ = [("L", ctypes.c_int), ("k0", ctypes.c_int),
+                ("kmax", ctypes.c_int), ("nmax", ctypes.c_int),
+                ("n_out", ctypes.c_int), ("v", ctypes.c_int),
+                ("depth", ctypes.c_int), ("width", ctypes.c_int),
+                ("ks", ctypes.c_int * MAX_L)]
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(path, os.X_OK):
+        raise RuntimeError("nvcc not found: the fuzzy-LUT CUDA kernels are "
+                           "built from source at first use")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in (SOURCES[name], *HEADERS):
+        h.update((CSRC / fname).read_bytes())
+    return BUILD_DIR / f"libfuzzy_lut_{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, float]:
+    """Compile every source not yet built, all in parallel.
+
+    Returns seconds per library built (empty when all were current);
+    raises ``RuntimeError`` with the compiler's output on a failure.
+    """
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, src in SOURCES.items():
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    secs, failed = {}, []
+    for name, (out, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        _LOG[name] = log
+        secs[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return secs
+
+
+def build_log() -> dict[str, str]:
+    """The compiler's output (``-Xptxas -v`` register/shared-memory report)
+    of each library built by this process."""
+    return dict(_LOG)
+
+
+_ARGTYPES = {
+    "fuzzy_lut_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "fuzzy_lut_q8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "fuzzy_lut_stack_f32": [ctypes.c_void_p] * 7 + [ctypes.c_int, StackGeom,
+                                                   ctypes.c_int, ctypes.c_void_p],
+    "fuzzy_lut_stack_q8": [ctypes.c_void_p] * 8 + [ctypes.c_int, StackGeom,
+                                                  ctypes.c_int, ctypes.c_void_p],
+}
+_LIB_OF = {"fuzzy_lut_f32": "bank", "fuzzy_lut_q8": "bank",
+           "fuzzy_lut_stack_f32": "stack", "fuzzy_lut_stack_q8": "stack"}
+
+
+def library(fn_name: str):
+    """The C entry point ``fn_name`` with its ``argtypes`` set, building and
+    loading its library on first use. Raises ``RuntimeError`` without CUDA,
+    without ``nvcc``, or off a Hopper (sm_90) card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the fuzzy-LUT kernels "
+                           "run only on an NVIDIA GPU")
+    name = _LIB_OF[fn_name]
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            major, minor = torch.cuda.get_device_capability()
+            if (major, minor) != (9, 0):
+                raise RuntimeError(
+                    f"the fuzzy-LUT kernels are built for sm_90a (H100/H200); "
+                    f"this card is sm_{major}{minor}")
+            if not _target(name).exists():
+                build_all()
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, lib_name in _LIB_OF.items():
+                if lib_name == name:
+                    getattr(lib, fn).argtypes = _ARGTYPES[fn]
+                    getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+    return getattr(lib, fn_name)
+
+
+def check_status(status: int, fn_name: str) -> None:
+    """Raise if a launch reported a CUDA error (a refused launch — too many
+    threads or too much shared memory — reports only here)."""
+    if status != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {status}")

@@ -1,0 +1,102 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch version,
+and a plan that must go through the kernels. Every test here is marked
+``cuda`` and skips without an NVIDIA GPU; this file imports no JAX, so it
+runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.fuzzy_lut import _lib, kernel as K, quantized as Q
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _bank(rng, t, k, v, depth, n, dev):
+    i = 2**depth - 1
+    thr = rng.normal(size=(k, i)).astype(np.float32)
+    thr[rng.random(size=thr.shape) < 0.1] = np.inf
+    arrays = (rng.normal(size=(t, k, v)), rng.integers(0, v, size=(k, i)), thr,
+              rng.normal(size=(k, i + 1, n)))
+    dtypes = (torch.float32, torch.int32, torch.float32, torch.float32)
+    return [torch.as_tensor(np.asarray(a), dtype=d, device=dev) for a, d in zip(arrays, dtypes)]
+
+
+@pytest.mark.parametrize("shape", [(4096, 16, 2, 6, 32), (1000, 13, 4, 5, 70), (1, 3, 2, 1, 1)])
+def test_bank_kernels_match_plain(dev, shape):
+    x, f, th, lut = _bank(np.random.default_rng(sum(shape)), *shape, dev)
+    y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
+    wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
+    assert torch.equal(lv.long(), wl)
+    torch.testing.assert_close(y, wy, rtol=TOL, atol=TOL)
+    q, s = Q.quantize_lut_int8(lut)
+    y, lv = Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True)
+    wy, wl = Q.fuzzy_lut_q8_plain(x, f, th, q, s)
+    assert torch.equal(lv.long(), wl)
+    torch.testing.assert_close(y, wy, rtol=TOL, atol=TOL)
+
+
+def test_stack_kernels_match_plain(dev):
+    rng = np.random.default_rng(5)
+    t, ks, v, depth, nmax, n_out = 777, (6, 4, 9), 3, 4, 27, 5
+    nl, kmax, c = len(ks), max(ks), 2**depth
+    feats = np.zeros((nl, kmax, c - 1), np.int32)
+    thr = np.full((nl, kmax, c - 1), np.inf, np.float32)
+    lut = np.zeros((nl, kmax, c, nmax), np.float32)
+    bias = np.zeros((nl, nmax), np.float32)
+    for l, k in enumerate(ks):
+        n = n_out if l == nl - 1 else ks[l + 1] * v
+        feats[l, :k] = rng.integers(0, v, size=(k, c - 1))
+        thr[l, :k] = rng.normal(size=(k, c - 1))
+        lut[l, :k, :, :n] = rng.normal(size=(k, c, n)) * 0.3
+        bias[l, :n] = rng.normal(size=n) * 0.1
+    x = rng.normal(size=(t, ks[0], v)).astype(np.float32)
+    x, f, th, lt, b = (torch.as_tensor(a, device=dev) for a in (x, feats, thr, lut, bias))
+    y, lv = K.fuzzy_lut_stack(x, f, th, lt, b, ks=ks, n_out=n_out, return_leaves=True)
+    wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lt, b, ks, n_out)
+    assert torch.equal(lv.long(), wl)
+    torch.testing.assert_close(y, wy, rtol=TOL, atol=TOL)
+    q, s = Q.quantize_lut_int8(lt.reshape(nl * kmax, c, nmax))
+    q, s = q.reshape(lt.shape).contiguous(), s.reshape(nl, kmax).contiguous()
+    y = Q.fuzzy_lut_stack_q8(x, f, th, q, s, b, ks=ks, n_out=n_out)
+    torch.testing.assert_close(y, Q.fuzzy_lut_stack_q8_plain(x, f, th, q, s, b, ks, n_out)[0],
+                               rtol=TOL, atol=TOL)
+
+
+def test_plan_goes_through_the_kernels(dev):
+    """A fused and an unfused plan on the card: kernel output equals the
+    gather backend, and only the expected kernel was launched."""
+    from repro_torch.core.amm import init_pegasus_linear
+    from repro_torch.engine import build_plan
+
+    rng = np.random.default_rng(0)
+    calib = (rng.normal(size=(400, 8)) * 3).astype(np.float32)
+    banks, d = [], 8
+    for n in (8, 8, 3):
+        w = rng.normal(size=(d, n)).astype(np.float32)
+        banks.append(init_pegasus_linear(w, rng.normal(size=n), calib, group_size=2,
+                                         depth=4, lut_bits=None, device=dev))
+        calib = calib @ w
+        d = n
+    x = (rng.normal(size=(300, 8)) * 3).astype(np.float32)
+    for fuse, name in ((True, "fuzzy_lut_stack"), (False, "fuzzy_lut")):
+        plan = build_plan(banks, fuse=fuse, device=dev)
+        ref = plan(x, backend="gather")
+        _lib.reset_launches()
+        out = plan(x, backend="kernel")
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES[name] == (1 if fuse else 3)
+        assert sum(_lib.LAUNCHES.values()) == _lib.LAUNCHES[name]
+        assert torch.equal(out, ref)

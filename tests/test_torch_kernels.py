@@ -1,0 +1,237 @@
+"""The port's fuzzy-LUT kernels against the JAX reference, on the CPU.
+
+On CPU tensors each wrapper runs its kernel's plain PyTorch version; these
+tests hold it against the Pallas kernels (interpret mode, both ``lookup``
+and ``mxu`` strategies) and the reference oracle on the same numpy inputs:
+outputs within rtol = atol = 1e-5 (sum order only), leaves and int8 codes
+exact. The CUDA kernels themselves are held against the plain versions on
+the card (tests/test_torch_cuda.py and ``chip_smoke.py``).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.fuzzy_lut.kernel import fuzzy_lut_pallas, fuzzy_lut_stack_pallas
+from repro.kernels.fuzzy_lut.ops import prepare_feat_onehot
+from repro.kernels.fuzzy_lut.quantized import (
+    fuzzy_lut_q8_pallas, fuzzy_lut_stack_q8_pallas,
+    quantize_lut_int8 as jax_quantize_lut_int8,
+)
+from repro.kernels.fuzzy_lut.ref import fuzzy_lut_matmul_ref, tree_descent_ref
+from repro_torch.kernels.fuzzy_lut import _lib, kernel as K, quantized as Q
+
+TOL = 1e-5
+STRATEGIES = ["lookup", "mxu"]
+# t, k, v, depth, n — the second is ragged in T, K and N
+BANK_SHAPES = [(16, 4, 2, 3, 8), (37, 13, 4, 5, 70)]
+
+
+def _bank_problem(seed, t, k, v, depth, n):
+    rng = np.random.default_rng(seed)
+    i = 2**depth - 1
+    thr = rng.normal(size=(k, i)).astype(np.float32)
+    thr[rng.random(size=thr.shape) < 0.1] = np.inf     # degenerate nodes
+    return dict(x=rng.normal(size=(t, k, v)).astype(np.float32),
+                features=rng.integers(0, v, size=(k, i)).astype(np.int32),
+                thresholds=thr,
+                lut=rng.normal(size=(k, i + 1, n)).astype(np.float32))
+
+
+def _stack_problem(seed, t, ks, v, depth, nmax, n_out):
+    """Padded stacks: groups k >= ks[l] hold +inf thresholds and zero rows."""
+    rng = np.random.default_rng(seed)
+    nl, kmax, c = len(ks), max(ks), 2**depth
+    feats = np.zeros((nl, kmax, c - 1), np.int32)
+    thr = np.full((nl, kmax, c - 1), np.inf, np.float32)
+    lut = np.zeros((nl, kmax, c, nmax), np.float32)
+    bias = np.zeros((nl, nmax), np.float32)
+    for l, k in enumerate(ks):
+        n = n_out if l == nl - 1 else ks[l + 1] * v
+        feats[l, :k] = rng.integers(0, v, size=(k, c - 1))
+        thr[l, :k] = rng.normal(size=(k, c - 1))
+        lut[l, :k, :, :n] = rng.normal(size=(k, c, n)) * 0.3
+        bias[l, :n] = rng.normal(size=n) * 0.1
+    return dict(x=rng.normal(size=(t, ks[0], v)).astype(np.float32),
+                features=feats, thresholds=thr, lut=lut, bias=bias)
+
+
+def _torch(p):
+    return {k: torch.as_tensor(v) for k, v in p.items()}
+
+
+def _onehot(features, v):
+    return prepare_feat_onehot(jnp.asarray(features), v)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("shape", BANK_SHAPES)
+def test_bank_kernel_matches_pallas(shape, strategy):
+    t, k, v, depth, n = shape
+    p = _bank_problem(sum(shape), *shape)
+    want = np.asarray(fuzzy_lut_pallas(
+        jnp.asarray(p["x"]), _onehot(p["features"], v), jnp.asarray(p["thresholds"]),
+        jnp.asarray(p["lut"]), depth=depth, interpret=True, strategy=strategy))
+    tp = _torch(p)
+    before = dict(_lib.LAUNCHES)
+    y, leaves = K.fuzzy_lut(tp["x"], tp["features"], tp["thresholds"], tp["lut"],
+                            return_leaves=True)
+    assert _lib.LAUNCHES == before            # CPU tensors: plain version, no launch
+    want_leaves = np.asarray(tree_descent_ref(
+        jnp.asarray(p["x"]), jnp.asarray(p["features"]), jnp.asarray(p["thresholds"])))
+    np.testing.assert_array_equal(leaves.numpy(), want_leaves)
+    np.testing.assert_allclose(y.numpy(), want, rtol=TOL, atol=TOL)
+    oracle = fuzzy_lut_matmul_ref(jnp.asarray(p["x"]), jnp.asarray(p["features"]),
+                                  jnp.asarray(p["thresholds"]), jnp.asarray(p["lut"]))
+    np.testing.assert_allclose(y.numpy(), np.asarray(oracle), rtol=TOL, atol=TOL)
+
+
+def test_quantize_lut_int8_bit_exact():
+    rng = np.random.default_rng(3)
+    lut = rng.normal(size=(6, 8, 5)).astype(np.float32) * 3.0
+    lut[2] = 0.0                                     # degenerate all-zero group
+    lut[4, 1, 1] = 0.5 * (lut[4].max() / 127.0)      # near a rounding tie
+    q, s = Q.quantize_lut_int8(torch.as_tensor(lut))
+    jq, js = jax_quantize_lut_int8(jnp.asarray(lut))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("shape", BANK_SHAPES)
+def test_bank_q8_kernel_matches_pallas(shape, strategy):
+    t, k, v, depth, n = shape
+    p = _bank_problem(sum(shape) + 1, *shape)
+    jq, js = jax_quantize_lut_int8(jnp.asarray(p["lut"]))
+    want = np.asarray(fuzzy_lut_q8_pallas(
+        jnp.asarray(p["x"]), _onehot(p["features"], v), jnp.asarray(p["thresholds"]),
+        jq, js, depth=depth, interpret=True, strategy=strategy))
+    tp = _torch(p)
+    q, s = Q.quantize_lut_int8(tp["lut"])
+    y = Q.fuzzy_lut_q8(tp["x"], tp["features"], tp["thresholds"], q, s)
+    np.testing.assert_allclose(y.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def _stack_q8(lut):
+    """Per-(layer, group) int8 codes + scales of a padded stack, as the
+    engines hold them."""
+    nl, kmax, c, nmax = lut.shape
+    return jax_quantize_lut_int8(jnp.asarray(lut.reshape(nl * kmax, c, nmax)))
+
+
+# ks with Kmax padding (layers 1..3 pad 4 → 6) and a ragged chain
+STACKS = [dict(t=16, ks=(6, 4, 4, 4), v=2, depth=3, nmax=8, n_out=3),
+          dict(t=21, ks=(5, 3, 7), v=3, depth=2, nmax=21, n_out=11)]
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("geom", STACKS, ids=["mlp-like", "ragged"])
+def test_stack_kernels_match_pallas(geom, strategy):
+    ks, n_out, depth = geom["ks"], geom["n_out"], geom["depth"]
+    p = _stack_problem(7, **geom)
+    j = {k: jnp.asarray(v) for k, v in p.items()}
+    feat_oh = prepare_feat_onehot(j["features"], geom["v"])
+    want = np.asarray(fuzzy_lut_stack_pallas(
+        j["x"], feat_oh, j["thresholds"], j["lut"], j["bias"], depth=depth, ks=ks,
+        n_out=n_out, interpret=True, strategy=strategy))
+    tp = _torch(p)
+    y, leaves = K.fuzzy_lut_stack(tp["x"], tp["features"], tp["thresholds"],
+                                  tp["lut"], tp["bias"], ks=ks, n_out=n_out,
+                                  return_leaves=True)
+    assert leaves.shape == (len(ks), geom["t"], max(ks))
+    np.testing.assert_allclose(y.numpy(), want, rtol=TOL, atol=TOL)
+
+    jq, js = _stack_q8(p["lut"])
+    nl, kmax = len(ks), max(ks)
+    want_q8 = np.asarray(fuzzy_lut_stack_q8_pallas(
+        j["x"], feat_oh, j["thresholds"], jq.reshape(p["lut"].shape),
+        js.reshape(nl, kmax), j["bias"], depth=depth, ks=ks, n_out=n_out,
+        interpret=True, strategy=strategy))
+    q = torch.as_tensor(np.array(jq)).reshape(p["lut"].shape).contiguous()
+    s = torch.as_tensor(np.array(js)).reshape(nl, kmax).contiguous()
+    y8 = Q.fuzzy_lut_stack_q8(tp["x"], tp["features"], tp["thresholds"], q, s,
+                              tp["bias"], ks=ks, n_out=n_out)
+    np.testing.assert_allclose(y8.numpy(), want_q8, rtol=TOL, atol=TOL)
+
+
+def test_stack_equals_chained_single_banks():
+    """Stacked ≡ the per-bank kernel chained per layer (re-partition + bias
+    between layers), leaves included — mirrors tests/test_kernels.py."""
+    geom = STACKS[0]
+    ks, v, n_out, t = geom["ks"], geom["v"], geom["n_out"], geom["t"]
+    tp = _torch(_stack_problem(11, **geom))
+    y, leaves = K.fuzzy_lut_stack(tp["x"], tp["features"], tp["thresholds"],
+                                  tp["lut"], tp["bias"], ks=ks, n_out=n_out,
+                                  return_leaves=True)
+    h = tp["x"]
+    for l, k in enumerate(ks):
+        n = n_out if l == len(ks) - 1 else ks[l + 1] * v
+        yl, ll = K.fuzzy_lut(h.contiguous(), tp["features"][l, :k].contiguous(),
+                             tp["thresholds"][l, :k].contiguous(),
+                             tp["lut"][l, :k, :, :n].contiguous(), return_leaves=True)
+        assert torch.equal(ll, leaves[l, :, :k])
+        yl = yl + tp["bias"][l, :n]
+        if l + 1 < len(ks):
+            h = yl.reshape(t, ks[l + 1], v)
+    torch.testing.assert_close(y, yl, rtol=TOL, atol=TOL)
+
+
+def test_wrappers_refuse_bad_operands():
+    tp = _torch(_bank_problem(5, 8, 4, 2, 3, 6))
+    with pytest.raises(ValueError, match="int32"):
+        K.fuzzy_lut(tp["x"], tp["features"].long(), tp["thresholds"], tp["lut"])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fuzzy_lut(tp["x"].transpose(0, 1), tp["features"], tp["thresholds"], tp["lut"])
+    with pytest.raises(ValueError, match="power of two"):
+        K.fuzzy_lut(tp["x"], tp["features"][:, :6].contiguous(),
+                    tp["thresholds"][:, :6].contiguous(), tp["lut"][:, :7].contiguous())
+    sp = _torch(_stack_problem(5, **STACKS[0]))
+    args = (sp["x"], sp["features"], sp["thresholds"], sp["lut"], sp["bias"])
+    with pytest.raises(ValueError, match="ks has 3 entries"):
+        K.fuzzy_lut_stack(*args, ks=(6, 4, 4), n_out=3)
+    with pytest.raises(ValueError, match="ks\\[0\\]"):
+        K.fuzzy_lut_stack(*args, ks=(4, 4, 4, 4), n_out=3)
+    with pytest.raises(ValueError, match="Nmax"):
+        K.fuzzy_lut_stack(*args, ks=(6, 4, 4, 4), n_out=9)
+
+
+def test_kernel_library_raises_without_cuda():
+    """No silent CPU: without a card the loader raises instead of handing
+    back anything that could stand in for the kernel."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for fn in ("fuzzy_lut_f32", "fuzzy_lut_q8", "fuzzy_lut_stack_f32", "fuzzy_lut_stack_q8"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _lib.library(fn)
+
+
+def test_layer_wrappers_match_reference_and_memoize():
+    """``fuzzy_lut_matmul``/``_q8`` on a PegasusLinear with leading batch
+    dims and a bias, against the reference's wrappers; the layout and the
+    int8 quantization are built once per layer."""
+    from repro.core import init_pegasus_linear as jax_init
+    from repro.kernels.fuzzy_lut import ops as jops
+    from repro_torch.core.amm import init_pegasus_linear
+    from repro_torch.kernels.fuzzy_lut import ops
+
+    rng = np.random.default_rng(16)
+    w = rng.normal(size=(12, 7)).astype(np.float32)
+    b = rng.normal(size=(7,)).astype(np.float32)
+    calib = rng.normal(size=(256, 12)).astype(np.float32)
+    layer = init_pegasus_linear(w, b, calib, group_size=3, depth=3, lut_bits=None,
+                                device="cpu")
+    ref = jax_init(w, b, calib, group_size=3, depth=3, lut_bits=None)
+    x = rng.normal(size=(3, 5, 12)).astype(np.float32)
+    for fn, jfn in ((ops.fuzzy_lut_matmul, jops.fuzzy_lut_matmul),
+                    (ops.fuzzy_lut_matmul_q8, jops.fuzzy_lut_matmul_q8)):
+        got = fn(layer, torch.as_tensor(x))
+        assert got.shape == (3, 5, 7)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jfn(ref, jnp.asarray(x), interpret=True)),
+                                   rtol=1e-4, atol=1e-4)
+    builds, quants = ops.LAYOUT_STATS["layout_builds"], ops.QUANT_STATS["quantize_calls"]
+    ops.fuzzy_lut_matmul_q8(layer, torch.as_tensor(x))
+    ops.fuzzy_lut_matmul(layer, torch.as_tensor(x))
+    assert ops.LAYOUT_STATS["layout_builds"] == builds
+    assert ops.QUANT_STATS["quantize_calls"] == quants
