@@ -9,15 +9,20 @@ Phases (any failure exits nonzero; none is caught and passed over):
   1. the device: its name, and its name and power limit from nvidia-smi;
   2. build the four fuzzy-LUT CUDA kernels from the sources in this checkout;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     MLP-B shapes at T=4096 and at a ragged shape: leaves exact, outputs
-     within rtol = atol = 1e-5; time both with CUDA events;
+     MLP-B shapes at T=4096, at a ragged shape and at T=1: leaves exact,
+     f32 outputs within rtol = atol = 1e-5, int8 outputs bit-equal (also
+     at shapes wider than a shared-memory ring slot, untimed); time both
+     with CUDA events, and each int8 kernel against its f32 control in
+     turns (f32, int8, int8, f32);
   4. the main path, as ``python -m repro_torch.launch.serve --pegasus``
      runs it at full size: peerrush traffic (1500 flows/class), the MLP-B
      teacher trained 800 steps on the card, ``pegasusify_mlp`` (v=2,
      depth 6), then ``PegasusServer`` on ``kernel`` and ``kernel_q8``, fused
      and unfused, serving ~32k flows as mixed-size requests; each output is
      held against the ``gather`` backend and the kernels' launch counts must
-     show that the path went through them;
+     show that the path went through them; a ``torch.profiler`` window
+     over the fused ``kernel_q8`` run gives device time by kernel name and
+     the device's idle share;
   5. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
@@ -37,11 +42,11 @@ SRC = ROOT / "src"
 KERNELS = [
     ("fuzzy_lut", "src/repro_torch/kernels/fuzzy_lut/csrc/fuzzy_lut_bank.cu",
      "src/repro/kernels/fuzzy_lut/kernel.py:232"),
-    ("fuzzy_lut_q8", "src/repro_torch/kernels/fuzzy_lut/csrc/fuzzy_lut_bank.cu",
+    ("fuzzy_lut_q8", "src/repro_torch/kernels/fuzzy_lut/csrc/fuzzy_lut_q8_bank.cu",
      "src/repro/kernels/fuzzy_lut/quantized.py:81"),
     ("fuzzy_lut_stack", "src/repro_torch/kernels/fuzzy_lut/csrc/fuzzy_lut_stack.cu",
      "src/repro/kernels/fuzzy_lut/kernel.py:334"),
-    ("fuzzy_lut_stack_q8", "src/repro_torch/kernels/fuzzy_lut/csrc/fuzzy_lut_stack.cu",
+    ("fuzzy_lut_stack_q8", "src/repro_torch/kernels/fuzzy_lut/csrc/fuzzy_lut_q8_stack.cu",
      "src/repro/kernels/fuzzy_lut/quantized.py:125"),
 ]
 
@@ -58,6 +63,12 @@ MLPB_BANKS = [(8, 32), (16, 32), (16, 32), (16, 3)]       # (K, N) per bank
 MLPB_STACK = dict(ks=(8, 16, 16, 16), v=2, depth=6, nmax=32, n_out=3)
 RAGGED_BANK = dict(t=1000, k=13, v=4, depth=5, n=70)
 RAGGED_STACK = dict(t=1000, ks=(13, 9, 5), v=4, depth=5, nmax=70, n_out=70)
+T1_BANK = dict(t=1, k=3, v=2, depth=1, n=1)
+T1_STACK = dict(t=1, ks=(3, 1), v=1, depth=1, nmax=3, n_out=1)
+# int8 only, untimed: wider than a ring slot (column tiles), and a bank
+# whose trees and LUT exceed a slot (read through L1)
+WIDE_BANKS = [dict(t=300, k=16, v=2, depth=6, n=2048), dict(t=200, k=256, v=2, depth=6, n=40)]
+WIDE_STACK = dict(t=300, ks=(16, 16), v=2, depth=6, nmax=1024, n_out=1024)
 REQUEST_SIZES = (1, 7, 64, 300, 1000, 2500, 4096, 33)
 
 
@@ -187,23 +198,34 @@ def device_ms(fn, inner: int = 20, reps: int = 25) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _compare(name, shape_tag, got_y, got_leaves, want_y, want_leaves):
+def _compare(name, shape_tag, got_y, got_leaves, want_y, want_leaves, exact=False):
     import torch
 
     if not torch.equal(got_leaves.long(), want_leaves.long()):
         bad = int((got_leaves.long() != want_leaves.long()).sum())
         raise AssertionError(f"{name} {shape_tag}: {bad} leaves differ from the plain version")
+    err = float((got_y - want_y).abs().max()) if got_y.numel() else 0.0
+    if exact and not torch.equal(got_y, want_y):
+        raise AssertionError(f"{name} {shape_tag}: not bit-equal to the plain version "
+                             f"(max |kernel - plain| {err})")
     if not torch.allclose(got_y, want_y, rtol=TOL, atol=TOL):
-        err = float((got_y - want_y).abs().max())
         raise AssertionError(f"{name} {shape_tag}: max |kernel - plain| {err} > {TOL}")
-    return float((got_y - want_y).abs().max()) if got_y.numel() else 0.0
+    return err
+
+
+def abba_ms(fn_a, fn_b) -> tuple[float, float]:
+    """Device times of ``fn_a`` and ``fn_b`` taken in turns a, b, b, a."""
+    a1, b1, b2, a2 = device_ms(fn_a), device_ms(fn_b), device_ms(fn_b), device_ms(fn_a)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def check_kernels(device, *, t: int = 4096, time_it: bool = True) -> dict:
-    """Each kernel vs its plain version at the MLP-B shapes (batch ``t``) and
-    at a ragged shape. Returns per-kernel max error, times and bound; the
-    per-bank kernels' numbers sum over the four MLP-B banks (one served
-    batch on the unfused path)."""
+    """Each kernel vs its plain version at the MLP-B shapes (batch ``t``), at
+    a ragged shape and at T=1; the int8 kernels also at the wide shapes.
+    Returns per-kernel max error, times and bound; the per-bank kernels'
+    numbers sum over the four MLP-B banks (one served batch on the unfused
+    path, ``timed_launches`` launches). Each int8 kernel is timed in turns
+    with its f32 control."""
     import numpy as np
 
     from repro_torch.kernels.fuzzy_lut import kernel as K
@@ -211,65 +233,78 @@ def check_kernels(device, *, t: int = 4096, time_it: bool = True) -> dict:
 
     rng = np.random.default_rng(0)
     out = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                      nbytes=0, ops=0) for name, _, _ in KERNELS}
+                      nbytes=0, ops=0, timed_launches=0) for name, _, _ in KERNELS}
 
-    def record(name, err, nbytes, ops, fn, plain):
+    def record(name, err, nbytes, ops, ms=None, plain=None):
         rec = out[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if nbytes is None:
             return
         rec["nbytes"] += nbytes
         rec["ops"] += ops
+        rec["timed_launches"] += 1
         if time_it:
-            rec["ms"] += device_ms(fn)
+            rec["ms"] += ms
             rec["plain_ms"] += device_ms(plain)
 
-    banks = [(dict(t=t, k=k, v=2, depth=6, n=n), True) for k, n in MLPB_BANKS]
-    banks.append((RAGGED_BANK, False))
-    for shape, timed in banks:
+    def check_bank(shape, timed, f32=True):
         p = bank_problem(rng, device=device, **shape)
         tag = f"T={shape['t']} K={shape['k']} v={shape['v']} d={shape['depth']} N={shape['n']}"
         x, f, th, lut = p["x"], p["features"], p["thresholds"], p["lut"]
-        y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
-        wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
-        err = _compare("fuzzy_lut", tag, y, lv, wy, wl)
-        nb, ops = bank_bound(p, wl, q8=False)
-        record("fuzzy_lut", err, nb if timed else None, ops,
-               lambda: K.fuzzy_lut(x, f, th, lut),
-               lambda: K.fuzzy_lut_plain(x, f, th, lut))
         q, s = Q.quantize_lut_int8(lut)
+        run32 = lambda: K.fuzzy_lut(x, f, th, lut)
+        run8 = lambda: Q.fuzzy_lut_q8(x, f, th, q, s)
+        ms32, ms8 = abba_ms(run32, run8) if timed and time_it else (None, None)
+        if f32:
+            y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
+            wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
+            err = _compare("fuzzy_lut", tag, y, lv, wy, wl)
+            nb, ops = bank_bound(p, wl, q8=False)
+            record("fuzzy_lut", err, nb if timed else None, ops, ms32,
+                   lambda: K.fuzzy_lut_plain(x, f, th, lut))
         y, lv = Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True)
         wy, wl = Q.fuzzy_lut_q8_plain(x, f, th, q, s)
-        err = _compare("fuzzy_lut_q8", tag, y, lv, wy, wl)
+        err = _compare("fuzzy_lut_q8", tag, y, lv, wy, wl, exact=True)
         nb, ops = bank_bound(p, wl, q8=True)
-        record("fuzzy_lut_q8", err, nb if timed else None, ops,
-               lambda: Q.fuzzy_lut_q8(x, f, th, q, s),
+        record("fuzzy_lut_q8", err, nb if timed else None, ops, ms8,
                lambda: Q.fuzzy_lut_q8_plain(x, f, th, q, s))
-        log(f"  checked per-bank kernels at {tag}")
+        log(f"  checked per-bank kernels at {tag}" + ("" if f32 else " (int8 only)"))
 
-    stacks = [(dict(t=t, **MLPB_STACK), True), (RAGGED_STACK, False)]
-    for shape, timed in stacks:
+    def check_stack(shape, timed, f32=True):
         ks, n_out = shape["ks"], shape["n_out"]
         p = stack_problem(rng, device=device, **shape)
         tag = f"T={shape['t']} ks={ks} v={shape['v']} d={shape['depth']} Nmax={shape['nmax']}"
         x, f, th, lut, b = (p[k] for k in ("x", "features", "thresholds", "lut", "bias"))
-        y, lv = K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out, return_leaves=True)
-        wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out)
-        err = _compare("fuzzy_lut_stack", tag, y, lv, wy, wl)
-        nb, ops = stack_bound(p, wl, ks, n_out, q8=False)
-        record("fuzzy_lut_stack", err, nb if timed else None, ops,
-               lambda: K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out),
-               lambda: K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out))
         qs, sc = quantize_stack(lut)
+        run32 = lambda: K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out)
+        run8 = lambda: Q.fuzzy_lut_stack_q8(x, f, th, qs, sc, b, ks=ks, n_out=n_out)
+        ms32, ms8 = abba_ms(run32, run8) if timed and time_it else (None, None)
+        if f32:
+            y, lv = K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out, return_leaves=True)
+            wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out)
+            err = _compare("fuzzy_lut_stack", tag, y, lv, wy, wl)
+            nb, ops = stack_bound(p, wl, ks, n_out, q8=False)
+            record("fuzzy_lut_stack", err, nb if timed else None, ops, ms32,
+                   lambda: K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out))
         y, lv = Q.fuzzy_lut_stack_q8(x, f, th, qs, sc, b, ks=ks, n_out=n_out,
                                      return_leaves=True)
         wy, wl = Q.fuzzy_lut_stack_q8_plain(x, f, th, qs, sc, b, ks, n_out)
-        err = _compare("fuzzy_lut_stack_q8", tag, y, lv, wy, wl)
+        err = _compare("fuzzy_lut_stack_q8", tag, y, lv, wy, wl, exact=True)
         nb, ops = stack_bound(p, wl, ks, n_out, q8=True)
-        record("fuzzy_lut_stack_q8", err, nb if timed else None, ops,
-               lambda: Q.fuzzy_lut_stack_q8(x, f, th, qs, sc, b, ks=ks, n_out=n_out),
+        record("fuzzy_lut_stack_q8", err, nb if timed else None, ops, ms8,
                lambda: Q.fuzzy_lut_stack_q8_plain(x, f, th, qs, sc, b, ks, n_out))
-        log(f"  checked stacked kernels at {tag}")
+        log(f"  checked stacked kernels at {tag}" + ("" if f32 else " (int8 only)"))
+
+    for k, n in MLPB_BANKS:
+        check_bank(dict(t=t, k=k, v=2, depth=6, n=n), True)
+    check_bank(RAGGED_BANK, False)
+    check_bank(T1_BANK, False)
+    for shape in WIDE_BANKS:
+        check_bank(shape, False, f32=False)
+    check_stack(dict(t=t, **MLPB_STACK), True)
+    check_stack(RAGGED_STACK, False)
+    check_stack(T1_STACK, False)
+    check_stack(WIDE_STACK, False, f32=False)
 
     for rec in out.values():
         rec["bound_ms"], rec["bound_by"] = bound_ms(rec["nbytes"], rec["ops"])
@@ -391,6 +426,7 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
             f"rel err {['%.4f' % r for r in rels]}, argmax agreement {run['agree']:.4f}")
 
     if device.type == "cuda":
+        res["profile"] = profile_window(res["runs"][("kernel_q8", True)]["server"], requests)
         expect = {("kernel", True): "fuzzy_lut_stack", ("kernel_q8", True): "fuzzy_lut_stack_q8",
                   ("kernel", False): "fuzzy_lut", ("kernel_q8", False): "fuzzy_lut_q8"}
         for key, name in expect.items():
@@ -399,6 +435,42 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
                 raise AssertionError(f"{key}: launches {got}; expected only {name}")
     res["launches"] = launches
     return res
+
+
+def profile_window(server, requests) -> dict | None:
+    """``torch.profiler`` over one served run of ``server``: device time by
+    kernel name and the device's idle share over the window (the span from
+    the first to the last event, host or device). None when the trace holds
+    no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.serve(requests)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.time_range.end > e.time_range.start]
+    if not dev:
+        return None
+    by_name: dict[str, float] = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for st, en in spans[1:]:
+        if st > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    return dict(window_us=t1 - t0, busy_us=busy, idle_share=1 - busy / (t1 - t0),
+                by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
 
 
 # ---------------------------------------------------------------------------
@@ -445,21 +517,38 @@ def main(argv=None) -> int:
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     for name, text in sorted(_lib.build_log().items()):
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry", "spill")):
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     log("kernels vs plain versions:")
     checks = check_kernels(device)
     for name, rec in checks.items():
-        log(f"  {name}: max_abs_err {rec['max_abs_err']}, {rec['ms']:.5f} ms "
-            f"(plain {rec['plain_ms']:.5f} ms, bound {rec['bound_ms']:.6f} ms by "
-            f"{rec['bound_by']}: {rec['nbytes']} B, {rec['ops']} ops)")
+        n = rec["timed_launches"]
+        log(f"  {name}: max_abs_err {rec['max_abs_err']}, {rec['ms']:.5f} ms for {n} "
+            f"launch(es), {rec['ms'] / n:.5f} ms per launch (plain {rec['plain_ms']:.5f} ms, "
+            f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}: {rec['nbytes']} B, "
+            f"{rec['ops']} ops)")
+    for q8, f32 in (("fuzzy_lut_stack_q8", "fuzzy_lut_stack"), ("fuzzy_lut_q8", "fuzzy_lut")):
+        a, b = checks[q8]["ms"], checks[f32]["ms"]
+        log(f"  int8 vs f32 control, timed in turns: {q8} {a:.5f} ms, {f32} {b:.5f} ms "
+            f"(int8/f32 = {a / b:.3f}) on {smi}")
 
     log("main path:")
     res = main_path(device)
     for (backend, fuse), run in res["runs"].items():
         log(f"  {backend:9s} fuse={fuse!s:5s} {run['flows_per_s']:.1f} flows/s, "
             f"served macro-F1 {run['f1']:.4f} (teacher {res['teacher_f1']:.4f})")
+
+    prof = res["profile"]
+    if prof is None:
+        log("profiler window (kernel_q8 fused served run): device time not measured "
+            "(the trace holds no device events)")
+    else:
+        log(f"profiler window (kernel_q8 fused served run, {smi}): window "
+            f"{prof['window_us']:.1f} us, device busy {prof['busy_us']:.1f} us, idle share "
+            f"{prof['idle_share']:.4f}")
+        for name, us in prof["by_name"].items():
+            log(f"  device {us:10.1f} us  {name[:110]}")
 
     lines = []
     for name, source, replaces in KERNELS:

@@ -25,15 +25,16 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "MAX_L", "StackGeom", "build_all", "build_log",
+__all__ = ["LAUNCHES", "MAX_L", "Q8Geom", "StackGeom", "build_all", "build_log",
            "check_status", "library", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = {"bank": "fuzzy_lut_bank.cu", "stack": "fuzzy_lut_stack.cu"}
-HEADERS = ("fuzzy_lut.cuh",)
+SOURCES = {"bank": "fuzzy_lut_bank.cu", "stack": "fuzzy_lut_stack.cu",
+           "q8_bank": "fuzzy_lut_q8_bank.cu", "q8_stack": "fuzzy_lut_q8_stack.cu"}
+HEADERS = ("fuzzy_lut.cuh", "fuzzy_lut_q8.cuh")
 
 # Must equal MAX_L in csrc/fuzzy_lut_stack.cu.
 MAX_L = 16
@@ -54,6 +55,14 @@ class StackGeom(ctypes.Structure):
                 ("n_out", ctypes.c_int), ("v", ctypes.c_int),
                 ("depth", ctypes.c_int), ("width", ctypes.c_int),
                 ("ks", ctypes.c_int * MAX_L)]
+
+
+class Q8Geom(ctypes.Structure):
+    """By-value geometry of an int8 launch; mirrors ``struct Q8Geom``."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "L", "k0", "kmax", "nmax", "n_out", "v", "depth", "width", "kstride",
+        "rows", "nchunks", "nstages", "nfills", "slot_bytes")]
 
 
 def reset_launches() -> None:
@@ -116,14 +125,15 @@ def build_log() -> dict[str, str]:
 
 _ARGTYPES = {
     "fuzzy_lut_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "fuzzy_lut_q8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "fuzzy_lut_q8": [ctypes.c_void_p] * 8 + [ctypes.c_int, Q8Geom] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p],
     "fuzzy_lut_stack_f32": [ctypes.c_void_p] * 7 + [ctypes.c_int, StackGeom,
                                                    ctypes.c_int, ctypes.c_void_p],
-    "fuzzy_lut_stack_q8": [ctypes.c_void_p] * 8 + [ctypes.c_int, StackGeom,
-                                                  ctypes.c_int, ctypes.c_void_p],
+    "fuzzy_lut_stack_q8": [ctypes.c_void_p] * 9 + [ctypes.c_int, Q8Geom]
+                          + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
-_LIB_OF = {"fuzzy_lut_f32": "bank", "fuzzy_lut_q8": "bank",
-           "fuzzy_lut_stack_f32": "stack", "fuzzy_lut_stack_q8": "stack"}
+_LIB_OF = {"fuzzy_lut_f32": "bank", "fuzzy_lut_q8": "q8_bank",
+           "fuzzy_lut_stack_f32": "stack", "fuzzy_lut_stack_q8": "q8_stack",}
 
 
 def library(fn_name: str):

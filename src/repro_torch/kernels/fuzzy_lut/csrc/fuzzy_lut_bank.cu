@@ -1,9 +1,9 @@
 // Per-bank fuzzy-LUT kernel: tree descent + LUT gather-sum for one
 // PegasusLinear bank, y[t, n] = sum_k lut[k, leaf_k(x[t, k]), n] (no bias).
 //
-// Replaces the Pallas kernels src/repro/kernels/fuzzy_lut/kernel.py
-// fuzzy_lut_pallas (f32 LUT) and src/repro/kernels/fuzzy_lut/quantized.py
-// fuzzy_lut_q8_pallas (int8 LUT with one f32 scale per group).
+// Replaces the Pallas kernel src/repro/kernels/fuzzy_lut/kernel.py
+// fuzzy_lut_pallas (f32 LUT). The int8 instance (fuzzy_lut_q8_pallas) is
+// fuzzy_lut_q8_bank.cu.
 //
 // What bounds it: bytes. Per row it reads K*v activations and writes N
 // outputs; the work is K*d compares and K*N adds, far below the card's
@@ -86,12 +86,4 @@ extern "C" int fuzzy_lut_f32(const float* x, const int* feat, const float* thr,
                              void* stream) {
   return launch_bank<float>(x, feat, thr, lut, nullptr, y, leaves, T, K, v,
                             depth, N, rows, stream);
-}
-
-extern "C" int fuzzy_lut_q8(const float* x, const int* feat, const float* thr,
-                            const int8_t* lut, const float* scales, float* y,
-                            int* leaves, int T, int K, int v, int depth, int N,
-                            int rows, void* stream) {
-  return launch_bank<int8_t>(x, feat, thr, lut, scales, y, leaves, T, K, v,
-                             depth, N, rows, stream);
 }

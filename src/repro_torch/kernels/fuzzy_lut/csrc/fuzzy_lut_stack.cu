@@ -3,10 +3,9 @@
 // [rows, N] is re-partitioned into the next layer's [rows, ks[l+1], v]
 // groups. Returns y [T, n_out] with every bias applied.
 //
-// Replaces the Pallas kernels src/repro/kernels/fuzzy_lut/kernel.py
-// fuzzy_lut_stack_pallas (f32 LUT stack) and
-// src/repro/kernels/fuzzy_lut/quantized.py fuzzy_lut_stack_q8_pallas (int8
-// stack with per-(layer, group) f32 scales).
+// Replaces the Pallas kernel src/repro/kernels/fuzzy_lut/kernel.py
+// fuzzy_lut_stack_pallas (f32 LUT stack). The int8 instance
+// (fuzzy_lut_stack_q8_pallas) is fuzzy_lut_q8_stack.cu.
 //
 // What bounds it: bytes, and below them the launch. The function must read
 // x [T, K0, v] and the operand stacks once and write y [T, n_out]; the work
@@ -135,13 +134,4 @@ extern "C" int fuzzy_lut_stack_f32(const float* x, const int* feat,
                                    int T, StackGeom g, int rows, void* stream) {
   return launch_stack<float>(x, feat, thr, lut, nullptr, bias, y, leaves, T, g,
                              rows, stream);
-}
-
-extern "C" int fuzzy_lut_stack_q8(const float* x, const int* feat,
-                                  const float* thr, const int8_t* lut,
-                                  const float* scales, const float* bias,
-                                  float* y, int* leaves, int T, StackGeom g,
-                                  int rows, void* stream) {
-  return launch_stack<int8_t>(x, feat, thr, lut, scales, bias, y, leaves, T, g,
-                              rows, stream);
 }

@@ -1,6 +1,7 @@
 """Fuzzy-LUT kernels for Hopper: per-bank and stacked, f32 LUT.
 
-Port of ``repro.kernels.fuzzy_lut.kernel``. Each wrapper launches a
+Port of ``repro.kernels.fuzzy_lut.kernel`` (the int8 instances are in
+``quantized.py``). Each wrapper launches a
 hand-written CUDA kernel (``csrc/fuzzy_lut_bank.cu``,
 ``csrc/fuzzy_lut_stack.cu``) on a CUDA tensor and runs its plain PyTorch
 version, defined beside it, on a CPU tensor. There is no other route: on a
@@ -102,19 +103,18 @@ def _bank_plain(x, features, thresholds, lut, scales):
     return lut_gather_sum(lut, leaves, scales), leaves
 
 
-def _bank_launch(fn_name, x, features, thresholds, lut, scales, depth,
-                 return_leaves):
+def _bank_launch(x, features, thresholds, lut, depth, return_leaves):
     t, k, v = x.shape
     n = lut.shape[2]
     y = torch.empty((t, n), dtype=torch.float32, device=x.device)
     leaves = (torch.empty((t, k), dtype=torch.int32, device=x.device)
               if return_leaves else None)
     if t:
-        ptrs = [x, features, thresholds, lut] + ([scales] if scales is not None else [])
-        _cuda_call(fn_name, x.device, *(p.data_ptr() for p in ptrs),
+        ptrs = [x, features, thresholds, lut]
+        _cuda_call("fuzzy_lut_f32", x.device, *(p.data_ptr() for p in ptrs),
                    y.data_ptr(), None if leaves is None else leaves.data_ptr(),
-                   t, k, v, depth, n, _rows(4 * k, fn_name))
-        _lib.LAUNCHES[fn_name.replace("_f32", "")] += 1
+                   t, k, v, depth, n, _rows(4 * k, "fuzzy_lut_f32"))
+        _lib.LAUNCHES["fuzzy_lut"] += 1
     return (y, leaves) if return_leaves else y
 
 
@@ -137,8 +137,7 @@ def fuzzy_lut(x: torch.Tensor, features: torch.Tensor,
     if x.device.type == "cpu":
         y, leaves = fuzzy_lut_plain(x, features, thresholds, lut)
         return (y, leaves.to(torch.int32)) if return_leaves else y
-    return _bank_launch("fuzzy_lut_f32", x, features, thresholds, lut, None,
-                        depth, return_leaves)
+    return _bank_launch(x, features, thresholds, lut, depth, return_leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +197,8 @@ def _stack_plain(x, features, thresholds, lut, bias, ks, n_out, scales):
     return y[:, :n_out], torch.stack(all_leaves)
 
 
-def _stack_launch(fn_name, x, features, thresholds, lut, bias, scales, ks,
-                  n_out, depth, return_leaves):
+def _stack_launch(x, features, thresholds, lut, bias, ks, n_out, depth,
+                  return_leaves):
     t, k0, v = x.shape
     nl, kmax, _, nmax = lut.shape
     y = torch.empty((t, n_out), dtype=torch.float32, device=x.device)
@@ -211,12 +210,11 @@ def _stack_launch(fn_name, x, features, thresholds, lut, bias, scales, ks,
         geom = _lib.StackGeom(L=nl, k0=k0, kmax=kmax, nmax=nmax, n_out=n_out,
                               v=v, depth=depth, width=width)
         geom.ks[:nl] = list(ks)
-        ptrs = [x, features, thresholds, lut] + ([scales] if scales is not None else [])
-        _cuda_call(fn_name, x.device, *(p.data_ptr() for p in ptrs),
-                   bias.data_ptr(), y.data_ptr(),
-                   None if leaves is None else leaves.data_ptr(), t, geom,
-                   _rows(4 * (width + kmax), fn_name))
-        _lib.LAUNCHES[fn_name.replace("_f32", "")] += 1
+        ptrs = [x, features, thresholds, lut, bias]
+        _cuda_call("fuzzy_lut_stack_f32", x.device, *(p.data_ptr() for p in ptrs),
+                   y.data_ptr(), None if leaves is None else leaves.data_ptr(),
+                   t, geom, _rows(4 * (width + kmax), "fuzzy_lut_stack_f32"))
+        _lib.LAUNCHES["fuzzy_lut_stack"] += 1
     return (y, leaves) if return_leaves else y
 
 
@@ -246,5 +244,5 @@ def fuzzy_lut_stack(x: torch.Tensor, features: torch.Tensor,
         y, leaves = fuzzy_lut_stack_plain(x, features, thresholds, lut, bias,
                                           ks, n_out)
         return (y, leaves.to(torch.int32)) if return_leaves else y
-    return _stack_launch("fuzzy_lut_stack_f32", x, features, thresholds, lut,
-                         bias, None, ks, n_out, depth, return_leaves)
+    return _stack_launch(x, features, thresholds, lut, bias, ks, n_out, depth,
+                         return_leaves)

@@ -100,3 +100,75 @@ def test_plan_goes_through_the_kernels(dev):
         assert _lib.LAUNCHES[name] == (1 if fuse else 3)
         assert sum(_lib.LAUNCHES.values()) == _lib.LAUNCHES[name]
         assert torch.equal(out, ref)
+
+
+def _stack(rng, t, ks, v, depth, nmax, n_out, dev):
+    nl, kmax, c = len(ks), max(ks), 2**depth
+    feats = np.zeros((nl, kmax, c - 1), np.int32)
+    thr = np.full((nl, kmax, c - 1), np.inf, np.float32)
+    lut = np.zeros((nl, kmax, c, nmax), np.float32)
+    bias = np.zeros((nl, nmax), np.float32)
+    for l, k in enumerate(ks):
+        n = n_out if l == nl - 1 else ks[l + 1] * v
+        feats[l, :k] = rng.integers(0, v, size=(k, c - 1))
+        thr[l, :k] = rng.normal(size=(k, c - 1))
+        lut[l, :k, :, :n] = rng.normal(size=(k, c, n)) * 0.3
+        bias[l, :n] = rng.normal(size=n) * 0.1
+    x = rng.normal(size=(t, ks[0], v)).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (x, feats, thr, lut, bias)]
+
+
+def _offset_view(t):
+    """``t``'s values in a tensor whose address is 1 element past a 16-byte
+    boundary: every part of it is staged by the cooperative copy."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# t, k, v, depth, n: MLP-B's widest bank, ragged, T=1, a bank wider than a
+# ring slot (column tiles), and one whose LUT and trees exceed a slot (read
+# through L1)
+Q8_BANKS = [(4096, 16, 2, 6, 32), (1000, 13, 4, 5, 70), (1, 3, 2, 1, 1),
+            (300, 16, 2, 6, 2048), (200, 256, 2, 6, 40)]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("shape", Q8_BANKS)
+def test_q8_bank_kernel_bit_equal(dev, shape, offset):
+    x, f, th, lut = _bank(np.random.default_rng(sum(shape)), *shape, dev)
+    q, s = Q.quantize_lut_int8(lut)
+    if offset:
+        f, th, q, s = (_offset_view(a) for a in (f, th, q, s))
+    before = _lib.LAUNCHES["fuzzy_lut_q8"]
+    y, lv = Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["fuzzy_lut_q8"] == before + 1
+    wy, wl = Q.fuzzy_lut_q8_plain(x, f, th, q, s)
+    assert torch.equal(lv.long(), wl)
+    assert torch.equal(y, wy)
+
+
+# MLP-B, ragged, and a stack whose layers exceed a ring slot
+Q8_STACKS = [dict(t=4096, ks=(8, 16, 16, 16), v=2, depth=6, nmax=32, n_out=3),
+             dict(t=1000, ks=(13, 9, 5), v=4, depth=5, nmax=70, n_out=70),
+             dict(t=1, ks=(3, 1), v=1, depth=1, nmax=3, n_out=1),
+             dict(t=300, ks=(16, 16), v=2, depth=6, nmax=1024, n_out=1024)]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("geom", Q8_STACKS, ids=["mlp-b", "ragged", "t1", "wide"])
+def test_q8_stack_kernel_bit_equal(dev, geom, offset):
+    ks, n_out = geom["ks"], geom["n_out"]
+    x, f, th, lt, b = _stack(np.random.default_rng(9), dev=dev, **geom)
+    nl, kmax, c, nmax = lt.shape
+    q, s = Q.quantize_lut_int8(lt.reshape(nl * kmax, c, nmax))
+    q, s = q.reshape(lt.shape).contiguous(), s.reshape(nl, kmax).contiguous()
+    if offset:
+        f, th, q, s, b = (_offset_view(a) for a in (f, th, q, s, b))
+    y, lv = Q.fuzzy_lut_stack_q8(x, f, th, q, s, b, ks=ks, n_out=n_out,
+                                 return_leaves=True)
+    wy, wl = Q.fuzzy_lut_stack_q8_plain(x, f, th, q, s, b, ks, n_out)
+    assert torch.equal(lv.long(), wl)
+    assert torch.equal(y, wy)

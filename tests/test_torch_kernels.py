@@ -235,3 +235,145 @@ def test_layer_wrappers_match_reference_and_memoize():
     ops.fuzzy_lut_matmul(layer, torch.as_tensor(x))
     assert ops.LAYOUT_STATS["layout_builds"] == builds
     assert ops.QUANT_STATS["quantize_calls"] == quants
+
+
+# ---------------------------------------------------------------------------
+# The int8 kernels' launch planner (plain Python; the kernel runs on the card)
+# ---------------------------------------------------------------------------
+
+
+def _q8_bulk_bytes(s, depth, nmax):
+    """The bytes the kernel's bulk copies bring for stage ``s``: what its
+    barrier must expect (expecting more, the wait would never end)."""
+    k, c = s.groups, 2**depth
+    parts = {Q.B_FEAT: 4 * k * (c - 1) if s.flags & Q.TREES else 0,
+             Q.B_THR: 4 * k * (c - 1) if s.flags & Q.TREES else 0,
+             Q.B_SCALE: 4 * k if s.flags & Q.GATHER else 0,
+             Q.B_BIAS: 4 * s.nt if s.flags & Q.GATHER else 0,
+             Q.B_LUT: (k * c * (nmax if s.flags & Q.FULLROW else s.nt)
+                       if s.flags & Q.LUT else 0)}
+    return sum(n for bit, n in parts.items() if s.bulk & bit)
+
+
+def _check_q8_plan(plan, ks, v, n_out, depth, nmax):
+    """Per layer: one descent before its columns, the layer's columns
+    covered once in order, every stage within a slot, the launch within a
+    block's shared memory."""
+    assert plan.smem_bytes(plan.max_rows) <= Q.Q8_SMEM_BYTES
+    assert plan.slot_bytes % 16 == 0
+    by_layer = {}
+    for s in plan.stages:
+        assert s.nbytes <= plan.slot_bytes
+        assert s.tx == _q8_bulk_bytes(s, depth, nmax)
+        by_layer.setdefault(s.layer, []).append(s)
+    assert list(by_layer) == list(range(len(ks)))
+    assert [i for a, n in plan.fills for i in range(a, a + n)] == list(range(len(plan.stages)))
+    for a, n in plan.fills:
+        assert sum(s.nbytes for s in plan.stages[a:a + n]) <= plan.slot_bytes
+    for l, stages in by_layer.items():
+        n_eff = n_out if l == len(ks) - 1 else ks[l + 1] * v
+        assert stages[0].flags & Q.DESCENT
+        assert sum(bool(s.flags & Q.DESCENT) for s in stages) == 1
+        cols = [(s.n0, s.nt) for s in stages if s.flags & Q.GATHER]
+        covered = [n for n0, nt in cols for n in range(n0, n0 + nt)]
+        assert covered == list(range(n_eff))
+    return by_layer
+
+
+def test_q8_plan_stages_mlp_b_layers_whole():
+    """MLP-B (v=2, depth 6, hidden 32): each layer, stacked or as a bank,
+    is a bulk-copied trees stage and one bulk-copied stage with the whole
+    int8 table (the descent overlaps the table's copy)."""
+    trees = Q.DESCENT | Q.TREES
+    whole = Q.GATHER | Q.LUT | Q.FULLROW
+    plan = Q.plan_q8((8, 16, 16, 16), 2, 6, 16, 32, 3, has_bias=True)
+    _check_q8_plan(plan, (8, 16, 16, 16), 2, 3, 6, 32)
+    assert [s.flags for s in plan.stages] == [trees, whole] * 4
+    assert all(s.lpitch == 32 for s in plan.stages)
+    tables = Q.B_SCALE | Q.B_BIAS | Q.B_LUT
+    assert [s.bulk for s in plan.stages] == [Q.B_FEAT | Q.B_THR, tables] * 3 + [
+        Q.B_FEAT | Q.B_THR, tables & ~Q.B_BIAS]
+    assert plan.stages[2].tx == 2 * 4 * 16 * 63
+    assert plan.stages[3].tx == 4 * 16 + 4 * 32 + 16 * 64 * 32
+    assert plan.rows_for(4096, 132) == 32
+    for k, n in ((8, 32), (16, 32), (16, 32), (16, 3)):
+        bank = Q.plan_q8((k,), 2, 6, k, n, n, has_bias=False)
+        assert [s.flags for s in bank.stages] == [trees, whole]
+
+
+@pytest.mark.parametrize("geom", [((16,), 2, 6, 16, 2048, 2048, False),
+                                  ((16, 16), 2, 6, 16, 1024, 1024, True),
+                                  ((40, 100, 30), 4, 7, 100, 400, 333, True)],
+                         ids=["bank-2048", "stack-1024", "ragged"])
+def test_q8_plan_tiles_cover_columns_within_a_slot(geom):
+    ks, v, depth, kmax, nmax, n_out, has_bias = geom
+    plan = Q.plan_q8(ks, v, depth, kmax, nmax, n_out, has_bias=has_bias)
+    by_layer = _check_q8_plan(plan, ks, v, n_out, depth, nmax)
+    last = by_layer[len(ks) - 1]
+    assert len(last) > 2                       # a trees stage and column tiles
+    assert last[0].flags == Q.DESCENT | Q.TREES
+    tiles = [s for s in last if s.flags & Q.GATHER]
+    assert all(s.flags & Q.LUT and not s.flags & Q.FULLROW for s in tiles)
+    assert all(s.pitch == tiles[0].nt == s.lpitch for s in tiles)
+    assert all(s.nt % 16 == 0 for s in tiles[:-1])
+
+
+def test_q8_plan_bulk_copy_needs_16_byte_addresses_and_sizes():
+    # aligned, 16-byte multiples: every part by bulk copy
+    t, s = Q.plan_q8((16,), 2, 6, 16, 32, 32, has_bias=False).stages
+    assert (t.bulk, s.bulk) == (Q.B_FEAT | Q.B_THR, Q.B_SCALE | Q.B_LUT)
+    assert t.tx == t.nbytes and s.tx == s.nbytes
+    # a table 4 bytes past a 16-byte boundary: that part is copied by the warp
+    s = Q.plan_q8((16,), 2, 6, 16, 32, 32, has_bias=False,
+                  align=(0, 0, 0, 0, 4)).stages[1]
+    assert s.bulk == Q.B_SCALE
+    assert s.tx == s.nbytes - 16 * 64 * 32
+    # C=2 trees (one node, 12 bytes for K=3) and 3 scales: nothing is a
+    # multiple of 16, as in the T=1 / K=3 / d=1 / N=1 card test
+    stages = Q.plan_q8((3,), 2, 1, 3, 1, 1, has_bias=False).stages
+    assert all(s.bulk == 0 and s.tx == 0 for s in stages)
+    # column tiles: bulk row segments only where Nmax, the tile's first
+    # column and its width are multiples of 16
+    tiles = [t for t in Q.plan_q8((16,), 2, 6, 16, 2048, 2040, has_bias=False).stages
+             if t.flags & Q.GATHER]
+    assert all(t.bulk & Q.B_LUT for t in tiles[:-1])
+    assert not tiles[-1].bulk & Q.B_LUT        # last tile is 2040 mod 96 = 24 wide
+    assert not any(t.bulk & Q.B_LUT for t in Q.plan_q8(
+        (16,), 2, 6, 16, 2047, 2047, has_bias=False).stages)
+
+
+def test_q8_plan_reads_through_l1_where_no_tile_fits():
+    """K=256 groups of depth-6 trees: neither the trees (129 KB) nor 16
+    LUT columns (262 KB) fit a slot; one stage walks and gathers from
+    global memory."""
+    plan = Q.plan_q8((256,), 2, 6, 256, 40, 40, has_bias=False)
+    _check_q8_plan(plan, (256,), 2, 40, 6, 40)
+    assert [s.flags for s in plan.stages] == [Q.DESCENT | Q.GATHER]
+
+
+@pytest.mark.parametrize("v", [1, 2, 4])
+@pytest.mark.parametrize("depth", [1, 4, 6, 8])
+def test_q8_plan_for_every_geometry_the_stack_admits(v, depth):
+    """Every geometry ``stack_fits`` admits, up to Nmax = 2048 (the fusion
+    cap), gets a plan: the int8 kernel refuses no stack the f32 one takes."""
+    rng = np.random.default_rng(100 * v + depth)
+    planned = 0
+    for _ in range(60):
+        nl = int(rng.integers(1, 6))
+        nmax = int(rng.choice([1, 3, 16, 32, 70, 256, 1000, 2048]))
+        kcap = max(1, nmax // v)
+        k0 = int(rng.integers(1, 4 * kcap + 1))
+        ks = (k0,) + tuple(int(rng.integers(1, kcap + 1)) for _ in range(nl - 1))
+        kmax = max(ks)
+        n_out = int(rng.integers(1, nmax + 1))
+        if not K.stack_fits(k0, v, kmax, nmax, nl):
+            continue
+        plan = Q.plan_q8(ks, v, depth, kmax, nmax, n_out, has_bias=True)
+        _check_q8_plan(plan, ks, v, n_out, depth, nmax)
+        planned += 1
+    assert planned > 20
+    # the extreme the fusion cap admits: Nmax = 2048 at the widest ks
+    ks = (2048 // v,) * 3
+    assert K.stack_fits(ks[0], v, ks[0], 2048, 3)
+    _check_q8_plan(Q.plan_q8(ks, v, depth, ks[0], 2048, 2048, has_bias=True), ks, v, 2048,
+                   depth, 2048)
