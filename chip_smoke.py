@@ -9,11 +9,10 @@ Phases (any failure exits nonzero; none is caught and passed over):
   1. the device: its name, and its name and power limit from nvidia-smi;
   2. build the four fuzzy-LUT CUDA kernels from the sources in this checkout;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     MLP-B shapes at T=4096, at a ragged shape and at T=1: leaves exact,
-     f32 outputs within rtol = atol = 1e-5, int8 outputs bit-equal (also
-     at shapes wider than a shared-memory ring slot, untimed); time both
-     with CUDA events, and each int8 kernel against its f32 control in
-     turns (f32, int8, int8, f32);
+     MLP-B shapes at T=4096, at a ragged shape, at T=1 and at wide shapes
+     (wider than a shared-memory ring slot or a warp, untimed): leaves
+     exact, outputs bit-equal; time both with CUDA events, each f32 kernel
+     and its int8 counterpart in turns (f32, int8, int8, f32);
   4. the main path, as ``python -m repro_torch.launch.serve --pegasus``
      runs it at full size: peerrush traffic (1500 flows/class), the MLP-B
      teacher trained 800 steps on the card, ``pegasusify_mlp`` (v=2,
@@ -54,8 +53,6 @@ KERNELS = [
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-TOL = 1e-5                       # kernel vs plain: sum order only
-SERVE_TOL = 1e-4                 # served kernel vs gather (tests/test_engine.py)
 Q8_BANK_REL, Q8_AGREE = 0.12, 0.75
 
 # MLP-B at its published Pegasus geometry: v=2, depth 6, hidden 32, 3 classes
@@ -65,8 +62,9 @@ RAGGED_BANK = dict(t=1000, k=13, v=4, depth=5, n=70)
 RAGGED_STACK = dict(t=1000, ks=(13, 9, 5), v=4, depth=5, nmax=70, n_out=70)
 T1_BANK = dict(t=1, k=3, v=2, depth=1, n=1)
 T1_STACK = dict(t=1, ks=(3, 1), v=1, depth=1, nmax=3, n_out=1)
-# int8 only, untimed: wider than a ring slot (column tiles), and a bank
-# whose trees and LUT exceed a slot (read through L1)
+# untimed: wider than an int8 ring slot (column tiles) and than a warp (N
+# in chunks of 32), and a bank whose trees and LUT exceed a slot (read
+# through L1; its f32 leaves kept in shared memory)
 WIDE_BANKS = [dict(t=300, k=16, v=2, depth=6, n=2048), dict(t=200, k=256, v=2, depth=6, n=40)]
 WIDE_STACK = dict(t=300, ks=(16, 16), v=2, depth=6, nmax=1024, n_out=1024)
 REQUEST_SIZES = (1, 7, 64, 300, 1000, 2500, 4096, 33)
@@ -198,18 +196,18 @@ def device_ms(fn, inner: int = 20, reps: int = 25) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _compare(name, shape_tag, got_y, got_leaves, want_y, want_leaves, exact=False):
+def _compare(name, shape_tag, got_y, got_leaves, want_y, want_leaves):
+    """Leaves exact and outputs bit-equal: every kernel sums in the plain
+    version's order."""
     import torch
 
     if not torch.equal(got_leaves.long(), want_leaves.long()):
         bad = int((got_leaves.long() != want_leaves.long()).sum())
         raise AssertionError(f"{name} {shape_tag}: {bad} leaves differ from the plain version")
     err = float((got_y - want_y).abs().max()) if got_y.numel() else 0.0
-    if exact and not torch.equal(got_y, want_y):
+    if not torch.equal(got_y, want_y):
         raise AssertionError(f"{name} {shape_tag}: not bit-equal to the plain version "
                              f"(max |kernel - plain| {err})")
-    if not torch.allclose(got_y, want_y, rtol=TOL, atol=TOL):
-        raise AssertionError(f"{name} {shape_tag}: max |kernel - plain| {err} > {TOL}")
     return err
 
 
@@ -221,11 +219,11 @@ def abba_ms(fn_a, fn_b) -> tuple[float, float]:
 
 def check_kernels(device, *, t: int = 4096, time_it: bool = True) -> dict:
     """Each kernel vs its plain version at the MLP-B shapes (batch ``t``), at
-    a ragged shape and at T=1; the int8 kernels also at the wide shapes.
-    Returns per-kernel max error, times and bound; the per-bank kernels'
-    numbers sum over the four MLP-B banks (one served batch on the unfused
-    path, ``timed_launches`` launches). Each int8 kernel is timed in turns
-    with its f32 control."""
+    a ragged shape, at T=1 and at the wide shapes. Returns per-kernel max
+    error, times and bound; the per-bank kernels' numbers sum over the four
+    MLP-B banks (one served batch on the unfused path, ``timed_launches``
+    launches). Each f32 kernel is timed in turns with its int8
+    counterpart."""
     import numpy as np
 
     from repro_torch.kernels.fuzzy_lut import kernel as K
@@ -247,7 +245,7 @@ def check_kernels(device, *, t: int = 4096, time_it: bool = True) -> dict:
             rec["ms"] += ms
             rec["plain_ms"] += device_ms(plain)
 
-    def check_bank(shape, timed, f32=True):
+    def check_bank(shape, timed):
         p = bank_problem(rng, device=device, **shape)
         tag = f"T={shape['t']} K={shape['k']} v={shape['v']} d={shape['depth']} N={shape['n']}"
         x, f, th, lut = p["x"], p["features"], p["thresholds"], p["lut"]
@@ -255,22 +253,21 @@ def check_kernels(device, *, t: int = 4096, time_it: bool = True) -> dict:
         run32 = lambda: K.fuzzy_lut(x, f, th, lut)
         run8 = lambda: Q.fuzzy_lut_q8(x, f, th, q, s)
         ms32, ms8 = abba_ms(run32, run8) if timed and time_it else (None, None)
-        if f32:
-            y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
-            wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
-            err = _compare("fuzzy_lut", tag, y, lv, wy, wl)
-            nb, ops = bank_bound(p, wl, q8=False)
-            record("fuzzy_lut", err, nb if timed else None, ops, ms32,
-                   lambda: K.fuzzy_lut_plain(x, f, th, lut))
+        y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
+        wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
+        err = _compare("fuzzy_lut", tag, y, lv, wy, wl)
+        nb, ops = bank_bound(p, wl, q8=False)
+        record("fuzzy_lut", err, nb if timed else None, ops, ms32,
+               lambda: K.fuzzy_lut_plain(x, f, th, lut))
         y, lv = Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True)
         wy, wl = Q.fuzzy_lut_q8_plain(x, f, th, q, s)
-        err = _compare("fuzzy_lut_q8", tag, y, lv, wy, wl, exact=True)
+        err = _compare("fuzzy_lut_q8", tag, y, lv, wy, wl)
         nb, ops = bank_bound(p, wl, q8=True)
         record("fuzzy_lut_q8", err, nb if timed else None, ops, ms8,
                lambda: Q.fuzzy_lut_q8_plain(x, f, th, q, s))
-        log(f"  checked per-bank kernels at {tag}" + ("" if f32 else " (int8 only)"))
+        log(f"  checked per-bank kernels at {tag}")
 
-    def check_stack(shape, timed, f32=True):
+    def check_stack(shape, timed):
         ks, n_out = shape["ks"], shape["n_out"]
         p = stack_problem(rng, device=device, **shape)
         tag = f"T={shape['t']} ks={ks} v={shape['v']} d={shape['depth']} Nmax={shape['nmax']}"
@@ -279,32 +276,31 @@ def check_kernels(device, *, t: int = 4096, time_it: bool = True) -> dict:
         run32 = lambda: K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out)
         run8 = lambda: Q.fuzzy_lut_stack_q8(x, f, th, qs, sc, b, ks=ks, n_out=n_out)
         ms32, ms8 = abba_ms(run32, run8) if timed and time_it else (None, None)
-        if f32:
-            y, lv = K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out, return_leaves=True)
-            wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out)
-            err = _compare("fuzzy_lut_stack", tag, y, lv, wy, wl)
-            nb, ops = stack_bound(p, wl, ks, n_out, q8=False)
-            record("fuzzy_lut_stack", err, nb if timed else None, ops, ms32,
-                   lambda: K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out))
+        y, lv = K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out, return_leaves=True)
+        wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out)
+        err = _compare("fuzzy_lut_stack", tag, y, lv, wy, wl)
+        nb, ops = stack_bound(p, wl, ks, n_out, q8=False)
+        record("fuzzy_lut_stack", err, nb if timed else None, ops, ms32,
+               lambda: K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out))
         y, lv = Q.fuzzy_lut_stack_q8(x, f, th, qs, sc, b, ks=ks, n_out=n_out,
                                      return_leaves=True)
         wy, wl = Q.fuzzy_lut_stack_q8_plain(x, f, th, qs, sc, b, ks, n_out)
-        err = _compare("fuzzy_lut_stack_q8", tag, y, lv, wy, wl, exact=True)
+        err = _compare("fuzzy_lut_stack_q8", tag, y, lv, wy, wl)
         nb, ops = stack_bound(p, wl, ks, n_out, q8=True)
         record("fuzzy_lut_stack_q8", err, nb if timed else None, ops, ms8,
                lambda: Q.fuzzy_lut_stack_q8_plain(x, f, th, qs, sc, b, ks, n_out))
-        log(f"  checked stacked kernels at {tag}" + ("" if f32 else " (int8 only)"))
+        log(f"  checked stacked kernels at {tag}")
 
     for k, n in MLPB_BANKS:
         check_bank(dict(t=t, k=k, v=2, depth=6, n=n), True)
     check_bank(RAGGED_BANK, False)
     check_bank(T1_BANK, False)
     for shape in WIDE_BANKS:
-        check_bank(shape, False, f32=False)
+        check_bank(shape, False)
     check_stack(dict(t=t, **MLPB_STACK), True)
     check_stack(RAGGED_STACK, False)
     check_stack(T1_STACK, False)
-    check_stack(WIDE_STACK, False, f32=False)
+    check_stack(WIDE_STACK, False)
 
     for rec in out.values():
         rec["bound_ms"], rec["bound_by"] = bound_ms(rec["nbytes"], rec["ops"])
@@ -405,9 +401,9 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
     for fuse in (True, False):
         run = res["runs"][("kernel", fuse)]
         run["max_abs_err"] = float(np.abs(run["out"] - ref).max())
-        if not np.allclose(run["out"], ref, rtol=SERVE_TOL, atol=SERVE_TOL):
-            raise AssertionError(f"kernel fuse={fuse}: max |kernel - gather| "
-                                 f"{run['max_abs_err']} > {SERVE_TOL}")
+        if not np.array_equal(run["out"], ref):
+            raise AssertionError(f"kernel fuse={fuse}: not bit-equal to gather "
+                                 f"(max |kernel - gather| {run['max_abs_err']})")
         run = res["runs"][("kernel_q8", fuse)]
         plan = run["server"].plan
         rels = []
@@ -528,10 +524,10 @@ def main(argv=None) -> int:
             f"launch(es), {rec['ms'] / n:.5f} ms per launch (plain {rec['plain_ms']:.5f} ms, "
             f"bound {rec['bound_ms']:.6f} ms by {rec['bound_by']}: {rec['nbytes']} B, "
             f"{rec['ops']} ops)")
-    for q8, f32 in (("fuzzy_lut_stack_q8", "fuzzy_lut_stack"), ("fuzzy_lut_q8", "fuzzy_lut")):
-        a, b = checks[q8]["ms"], checks[f32]["ms"]
-        log(f"  int8 vs f32 control, timed in turns: {q8} {a:.5f} ms, {f32} {b:.5f} ms "
-            f"(int8/f32 = {a / b:.3f}) on {smi}")
+    for f32, q8 in (("fuzzy_lut_stack", "fuzzy_lut_stack_q8"), ("fuzzy_lut", "fuzzy_lut_q8")):
+        a, b = checks[f32]["ms"], checks[q8]["ms"]
+        log(f"  f32 vs int8, timed in turns: {f32} {a:.5f} ms, {q8} {b:.5f} ms "
+            f"(f32/int8 = {a / b:.3f}, int8/f32 = {b / a:.3f}) on {smi}")
 
     log("main path:")
     res = main_path(device)

@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "MAX_L", "Q8Geom", "StackGeom", "build_all", "build_log",
+__all__ = ["F32Geom", "LAUNCHES", "MAX_L", "Q8Geom", "build_all", "build_log",
            "check_status", "library", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -34,9 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"bank": "fuzzy_lut_bank.cu", "stack": "fuzzy_lut_stack.cu",
            "q8_bank": "fuzzy_lut_q8_bank.cu", "q8_stack": "fuzzy_lut_q8_stack.cu"}
-HEADERS = ("fuzzy_lut.cuh", "fuzzy_lut_q8.cuh")
+HEADERS = ("fuzzy_lut_f32.cuh", "fuzzy_lut_q8.cuh")
 
-# Must equal MAX_L in csrc/fuzzy_lut_stack.cu.
+# Must equal F32_MAX_L in csrc/fuzzy_lut_f32.cuh.
 MAX_L = 16
 
 LAUNCHES = {"fuzzy_lut": 0, "fuzzy_lut_q8": 0, "fuzzy_lut_stack": 0,
@@ -47,14 +47,12 @@ _LOG: dict[str, str] = {}
 _LOCK = threading.Lock()
 
 
-class StackGeom(ctypes.Structure):
-    """By-value geometry of a fused stack; mirrors ``struct StackGeom``."""
+class F32Geom(ctypes.Structure):
+    """By-value geometry of an f32 launch; mirrors ``struct F32Geom``."""
 
-    _fields_ = [("L", ctypes.c_int), ("k0", ctypes.c_int),
-                ("kmax", ctypes.c_int), ("nmax", ctypes.c_int),
-                ("n_out", ctypes.c_int), ("v", ctypes.c_int),
-                ("depth", ctypes.c_int), ("width", ctypes.c_int),
-                ("ks", ctypes.c_int * MAX_L)]
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "L", "k0", "kmax", "nmax", "n_out", "v", "depth", "kpad", "regs",
+        "width", "kstride")] + [("ks", ctypes.c_int * MAX_L)]
 
 
 class Q8Geom(ctypes.Structure):
@@ -124,11 +122,12 @@ def build_log() -> dict[str, str]:
 
 
 _ARGTYPES = {
-    "fuzzy_lut_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "fuzzy_lut_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int, F32Geom] + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p],
     "fuzzy_lut_q8": [ctypes.c_void_p] * 8 + [ctypes.c_int, Q8Geom] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p],
-    "fuzzy_lut_stack_f32": [ctypes.c_void_p] * 7 + [ctypes.c_int, StackGeom,
-                                                   ctypes.c_int, ctypes.c_void_p],
+    "fuzzy_lut_stack_f32": [ctypes.c_void_p] * 7 + [ctypes.c_int, F32Geom]
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "fuzzy_lut_stack_q8": [ctypes.c_void_p] * 9 + [ctypes.c_int, Q8Geom]
                           + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }

@@ -1,16 +1,19 @@
-"""Where an int8 fuzzy-LUT launch spends its time, on the card.
+"""Where a fuzzy-LUT launch spends its time, on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.fuzzy_lut.breakdown
 
-Builds variants of ``csrc/fuzzy_lut_q8.cuh`` that stop short of one phase
-each, and times every variant with the f32 kernels as control, at MLP-B's
-bucket-4096 shapes (the widest bank, K=16 N=32, and the fused stack):
+Builds variants of each kernel design (``csrc/fuzzy_lut_f32.cuh``,
+``csrc/fuzzy_lut_q8.cuh``) that stop short of one phase each, and times
+every variant in turns with the other design's shipped kernel as control
+(control, variant, variant, control), at MLP-B's bucket-4096 shapes (the
+widest bank, K=16 N=32, and the fused stack):
 
   full        the kernel as shipped;
   no_gather   without the LUT gather-sum (staging and descent);
-  stage_only  without descent and gather (the table, the ring's copies,
-              the input rows);
-  empty       no stage at all (the launch, the stage table, the barriers).
+  stage_only  without descent and gather (the trees' copies, the input
+              rows; for int8 also the stage table and the LUT's copies);
+  empty       no layer at all (the launch; for int8 the stage table and
+              the barriers).
 
 Successive differences read as the cost of gather, descent and staging
 where a phase does not overlap the next. Prints one line per variant;
@@ -32,55 +35,69 @@ from . import kernel as K
 from . import quantized as Q
 
 BUILD = _lib.BUILD_DIR / "breakdown"
-# (variant, [(text in the header, its replacement)])
-VARIANTS = [
-    ("full", []),
-    ("no_gather", [("      if (flags & Q8_GATHER) {", "      if (false) {")]),
-    ("stage_only", [("      if (flags & Q8_GATHER) {", "      if (false) {"),
-                    ("      if (flags & Q8_DESCENT) {", "      if (false) {")]),
-    ("empty", [("  const int total = my_chunks * g.nfills;",
-                "  const int total = 0 * my_chunks;")]),
-]
-SOURCES = {"fuzzy_lut_q8": "fuzzy_lut_q8_bank.cu",
-           "fuzzy_lut_stack_q8": "fuzzy_lut_q8_stack.cu"}
+# design -> header, {C entry: source}, [(variant, [(text in the header,
+# its replacement at every place)])]. The f32 variants keep a use of what
+# they skip (a test that never passes) so the compiler keeps the phases
+# before it.
+DESIGNS = {
+    "f32": ("fuzzy_lut_f32.cuh",
+            {"fuzzy_lut_f32": "fuzzy_lut_bank.cu",
+             "fuzzy_lut_stack_f32": "fuzzy_lut_stack.cu"},
+            [("full", []),
+             ("no_gather", [("n0 < n_eff;", "n0 < (leaf == -7 ? n_eff : 0);")]),
+             ("stage_only", [("d < g.depth;", "d < 0;"),
+                             ("n0 < n_eff;", "n0 < (h == 1234.5f ? n_eff : 0);")]),
+             ("empty", [("  const int L = g.L;", "  const int L = 0;")])]),
+    "q8": ("fuzzy_lut_q8.cuh",
+           {"fuzzy_lut_q8": "fuzzy_lut_q8_bank.cu",
+            "fuzzy_lut_stack_q8": "fuzzy_lut_q8_stack.cu"},
+           [("full", []),
+            ("no_gather", [("      if (flags & Q8_GATHER) {", "      if (false) {")]),
+            ("stage_only", [("      if (flags & Q8_GATHER) {", "      if (false) {"),
+                            ("      if (flags & Q8_DESCENT) {", "      if (false) {")]),
+            ("empty", [("  const int total = my_chunks * g.nfills;",
+                        "  const int total = 0 * my_chunks;")])]),
+}
 T, V, DEPTH = 4096, 2, 6
 BANK = dict(k=16, n=32)
 STACK = dict(ks=(8, 16, 16, 16), nmax=32, n_out=3)
 
 
 def _build() -> dict:
-    header = (_lib.CSRC / "fuzzy_lut_q8.cuh").read_text()
+    """Every variant of every design, compiled in parallel."""
     procs = {}
-    for name, edits in VARIANTS:
-        text = header
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} not found once in the header")
-            text = text.replace(old, new)
-        out = BUILD / name
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "fuzzy_lut_q8.cuh").write_text(text)
-        for fn, src in SOURCES.items():
-            (out / src).write_text((_lib.CSRC / src).read_text())
-            lib = out / f"{src[:-3]}.so"
-            procs[(name, fn)] = (lib, subprocess.Popen(
-                [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(lib), str(out / src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for design, (header, sources, variants) in DESIGNS.items():
+        base = (_lib.CSRC / header).read_text()
+        for name, edits in variants:
+            text = base
+            for old, new in edits:
+                if old not in text:
+                    raise RuntimeError(f"{design} {name}: {old!r} not in {header}")
+                text = text.replace(old, new)
+            out = BUILD / design / name
+            out.mkdir(parents=True, exist_ok=True)
+            (out / header).write_text(text)
+            for fn, src in sources.items():
+                (out / src).write_text((_lib.CSRC / src).read_text())
+                lib = out / f"{src[:-3]}.so"
+                procs[(design, name, fn)] = (lib, subprocess.Popen(
+                    [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(lib), str(out / src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
-    for (name, fn), (lib, proc) in procs.items():
+    for (design, name, fn), (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {design} {name}:\n{log}")
         f = getattr(ctypes.CDLL(str(lib)), fn)
         f.argtypes, f.restype = _lib._ARGTYPES[fn], ctypes.c_int
-        fns[(name, fn)] = f
+        fns[(design, name, fn)] = f
     return fns
 
 
-def _launcher(f, fn_name, args, ks, n_out, nmax, has_bias):
-    """A call of ``f`` with the wrapper's own plan and launch shape."""
+def _q8_launcher(f, fn_name, args, ks, n_out, nmax):
+    """A call of ``f`` with the int8 wrapper's own plan and launch shape."""
     dev = args[0].device
-    plan = Q.plan_q8(ks, V, DEPTH, max(ks), nmax, n_out, has_bias=has_bias)
+    plan = Q.plan_q8(ks, V, DEPTH, max(ks), nmax, n_out, has_bias=len(args) == 6)
     rows, nchunks, grid, threads, smem = Q.launch_shape(plan, T, dev)
     geom = _lib.Q8Geom(L=len(ks), k0=ks[0], kmax=max(ks), nmax=nmax, n_out=n_out,
                        v=V, depth=DEPTH, width=plan.width, kstride=plan.kstride,
@@ -97,6 +114,21 @@ def _launcher(f, fn_name, args, ks, n_out, nmax, has_bias):
     return run, y
 
 
+def _f32_launcher(f, fn_name, args, ks, n_out, nmax):
+    """A call of ``f`` with the f32 wrapper's own plan and launch shape."""
+    dev = args[0].device
+    plan = K.plan_f32(ks, V, DEPTH, max(ks))
+    _, grid, threads, smem = K.f32_launch_shape(plan, T, K._sm_count(dev))
+    geom = K.f32_geom(plan, ks, ks[0], max(ks), nmax, n_out, V, DEPTH)
+    y = torch.empty((T, n_out), device=dev)
+
+    def run():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _lib.check_status(f(*(a.data_ptr() for a in args), y.data_ptr(), None, T, geom,
+                            grid, threads, smem, stream), fn_name)
+    return run, y
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("breakdown: needs an NVIDIA GPU", file=sys.stderr)
@@ -109,35 +141,50 @@ def main() -> int:
     rng = np.random.default_rng(0)
     p = cs.bank_problem(rng, T, BANK["k"], V, DEPTH, BANK["n"], dev)
     q, s = Q.quantize_lut_int8(p["lut"])
-    bank = [p["x"], p["features"], p["thresholds"], q, s]
-    want_bank = Q.fuzzy_lut_q8_plain(*bank)[0]
     sp = cs.stack_problem(rng, t=T, v=V, depth=DEPTH, device=dev, **STACK)
     qs, sc = cs.quantize_stack(sp["lut"])
-    stack = [sp["x"], sp["features"], sp["thresholds"], qs, sc, sp["bias"]]
-    want_stack = Q.fuzzy_lut_stack_q8_plain(*stack, STACK["ks"], STACK["n_out"])[0]
-    f32_bank = lambda: K.fuzzy_lut(p["x"], p["features"], p["thresholds"], p["lut"])
-    f32_stack = lambda: K.fuzzy_lut_stack(sp["x"], sp["features"], sp["thresholds"],
-                                          sp["lut"], sp["bias"], ks=STACK["ks"],
-                                          n_out=STACK["n_out"])
-    print(f"f32 control: bank {cs.device_ms(f32_bank) * 1e3:.2f} us, "
-          f"stack {cs.device_ms(f32_stack) * 1e3:.2f} us", flush=True)
-    for name, _ in VARIANTS:
-        rb, yb = _launcher(fns[(name, "fuzzy_lut_q8")], "fuzzy_lut_q8", bank, (BANK["k"],),
-                           BANK["n"], BANK["n"], False)
-        rs, ys = _launcher(fns[(name, "fuzzy_lut_stack_q8")], "fuzzy_lut_stack_q8", stack,
-                           STACK["ks"], STACK["n_out"], STACK["nmax"], True)
-        tb, ts = cs.device_ms(rb), cs.device_ms(rs)
-        exact = ""
-        if name == "full":
-            rb()
-            rs()
-            torch.cuda.synchronize()
-            exact = (f" (bit-equal to plain: bank {torch.equal(yb, want_bank)}, "
-                     f"stack {torch.equal(ys, want_stack)})")
-        print(f"q8 {name:10s} bank {tb * 1e3:6.2f} us  stack {ts * 1e3:6.2f} us{exact}",
-              flush=True)
-    print(f"f32 control: bank {cs.device_ms(f32_bank) * 1e3:.2f} us, "
-          f"stack {cs.device_ms(f32_stack) * 1e3:.2f} us", flush=True)
+    ks, n_out, nmax = STACK["ks"], STACK["n_out"], STACK["nmax"]
+    # design -> (bank args, stack args, launcher, C entries)
+    cases = {
+        "f32": ([p["x"], p["features"], p["thresholds"], p["lut"]],
+                [sp["x"], sp["features"], sp["thresholds"], sp["lut"], sp["bias"]],
+                _f32_launcher, ("fuzzy_lut_f32", "fuzzy_lut_stack_f32")),
+        "q8": ([p["x"], p["features"], p["thresholds"], q, s],
+               [sp["x"], sp["features"], sp["thresholds"], qs, sc, sp["bias"]],
+               _q8_launcher, ("fuzzy_lut_q8", "fuzzy_lut_stack_q8")),
+    }
+    want = {
+        "f32": (K.fuzzy_lut_plain(*cases["f32"][0])[0],
+                K.fuzzy_lut_stack_plain(*cases["f32"][1], ks, n_out)[0]),
+        "q8": (Q.fuzzy_lut_q8_plain(*cases["q8"][0])[0],
+               Q.fuzzy_lut_stack_q8_plain(*cases["q8"][1], ks, n_out)[0]),
+    }
+
+    def runs(design, variant):
+        bank, stack, launcher, (fb, fs) = cases[design]
+        rb, yb = launcher(fns[(design, variant, fb)], fb, bank, (BANK["k"],),
+                          BANK["n"], BANK["n"])
+        rs, ys = launcher(fns[(design, variant, fs)], fs, stack, ks, n_out, nmax)
+        return rb, yb, rs, ys
+
+    print(f"MLP-B at T={T}: bank K={BANK['k']} N={BANK['n']}, stack ks={ks}; card "
+          f"{cs._nvidia_smi()}", flush=True)
+    for design, other in (("f32", "q8"), ("q8", "f32")):
+        cb, _, cstack, _ = runs(other, "full")
+        for name, _ in DESIGNS[design][2]:
+            rb, yb, rs, ys = runs(design, name)
+            ctl_b, tb = cs.abba_ms(cb, rb)
+            ctl_s, ts = cs.abba_ms(cstack, rs)
+            exact = ""
+            if name == "full":
+                rb()
+                rs()
+                torch.cuda.synchronize()
+                exact = (f" (bit-equal to plain: bank {torch.equal(yb, want[design][0])}, "
+                         f"stack {torch.equal(ys, want[design][1])})")
+            print(f"{design} {name:10s} bank {tb * 1e3:6.2f} us  stack {ts * 1e3:6.2f} us"
+                  f"  | {other} control bank {ctl_b * 1e3:6.2f} us  stack "
+                  f"{ctl_s * 1e3:6.2f} us{exact}", flush=True)
     return 0
 
 

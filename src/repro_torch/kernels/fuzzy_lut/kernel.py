@@ -1,11 +1,13 @@
 """Fuzzy-LUT kernels for Hopper: per-bank and stacked, f32 LUT.
 
 Port of ``repro.kernels.fuzzy_lut.kernel`` (the int8 instances are in
-``quantized.py``). Each wrapper launches a
-hand-written CUDA kernel (``csrc/fuzzy_lut_bank.cu``,
-``csrc/fuzzy_lut_stack.cu``) on a CUDA tensor and runs its plain PyTorch
-version, defined beside it, on a CPU tensor. There is no other route: on a
-CUDA tensor the wrapper launches the kernel or raises.
+``quantized.py``). Each wrapper launches the hand-written CUDA kernel of
+``csrc/fuzzy_lut_f32.cuh`` (the bank is its one-layer case) on a CUDA
+tensor and runs its plain PyTorch version, defined beside it, on a CPU
+tensor. There is no other route: on a CUDA tensor the wrapper launches the
+kernel or raises. What the kernel keeps where (the row in registers or in
+shared memory, the trees node-major in shared memory or read through L1)
+is decided here from the shapes by :func:`plan_f32`.
 
 The kernels take the split features as int32 node ids ``[K, I]`` (not the
 TPU's ``[K, I, v]`` one-hot, which existed to feed its matrix unit), mask
@@ -17,19 +19,31 @@ of the plain versions, so both give the same bits on one device.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from . import _lib
 from .ref import lut_gather_sum, tree_descent_ref
 
-__all__ = ["ROWS_PER_BLOCK", "SMEM_BYTES", "fuzzy_lut", "fuzzy_lut_plain",
-           "fuzzy_lut_stack", "fuzzy_lut_stack_plain", "stack_fits"]
+__all__ = ["F32Plan", "SMEM_PER_BLOCK", "STACK_ROW_BYTES", "f32_geom", "f32_launch_shape",
+           "fuzzy_lut", "fuzzy_lut_plain", "fuzzy_lut_stack",
+           "fuzzy_lut_stack_plain", "plan_f32", "stack_fits"]
 
-# Batch rows one block takes, and the shared memory it may use without an
-# opt-in attribute. Rows shrink for wide geometries to stay under it.
-ROWS_PER_BLOCK = 16
-SMEM_BYTES = 48 * 1024
+# The fusion cap: one row's activations and leaves of a stack, in bytes.
+# It decides which runs of banks fuse (engine/plan.py: fuse_banks), so it
+# stays where the first stacked kernel put it.
+STACK_ROW_BYTES = 48 * 1024
+# Shared memory one block may opt into on Hopper (227 KB), for both kernel
+# designs. For the f32 one: the rows (warps) of a block, the tree row
+# pitch's multiple, and the LUT loads issued before the first add
+# (csrc/fuzzy_lut_f32.cuh: F32_CHUNK).
+SMEM_PER_BLOCK = 232448
+F32_MAX_ROWS = 32
+TREE_PITCH = 16
+F32_CHUNK = 16
 
 
 def _depth(c: int) -> int:
@@ -39,12 +53,110 @@ def _depth(c: int) -> int:
     return depth
 
 
-def _rows(bytes_per_row: int, what: str) -> int:
-    rows = min(ROWS_PER_BLOCK, SMEM_BYTES // bytes_per_row)
-    if rows < 1:
-        raise ValueError(f"{what}: one row needs {bytes_per_row} B of shared "
-                         f"memory, more than {SMEM_BYTES}")
-    return rows
+def _pad(n: int, to: int = 16) -> int:
+    return -(-n // to) * to
+
+
+@dataclass(frozen=True)
+class F32Plan:
+    """Where an f32 launch keeps what (``struct F32Geom``).
+
+    ``regs``: every layer's input row (``K*v``) fits a warp, one value per
+    lane, so the activations stay in registers; else each warp keeps a
+    ``width``-float row in shared memory (0 for a lone layer, which reads
+    its input row from global memory). Each warp keeps the LUT row indices
+    of its groups in a ``kstride``-int row (the largest group count rounded
+    up to ``F32_CHUNK``). ``kpad`` > 0: every layer's trees are copied into
+    shared memory and transposed there to node-major words with that row
+    pitch (``tree_bytes`` for both); 0: the descent reads them through L1.
+    ``max_rows``: warps (rows) per block.
+    """
+
+    regs: bool
+    width: int
+    kstride: int
+    kpad: int
+    tree_bytes: int
+    max_rows: int
+
+    @property
+    def row_bytes(self) -> int:
+        return 4 * (self.width + self.kstride)
+
+    def smem_bytes(self, rows: int) -> int:
+        return self.tree_bytes + rows * self.row_bytes
+
+
+@functools.lru_cache(maxsize=256)
+def plan_f32(ks: tuple[int, ...], v: int, depth: int, kmax: int) -> F32Plan:
+    """Plan an f32 launch over layers of ``ks`` groups (a bank is
+    ``ks=(K,)``) whose operand stacks hold ``kmax`` groups. Raises
+    ``ValueError`` when one row does not fit a block's shared memory."""
+    i, kbig = 2**depth - 1, max(ks)
+    regs = all(k * v <= 32 for k in ks)
+    width = 0 if regs or len(ks) == 1 else _pad(max(k * v for k in ks), 4)
+    kstride = _pad(kbig, F32_CHUNK)
+    row_bytes = 4 * (width + kstride)
+    max_rows = min(F32_MAX_ROWS, SMEM_PER_BLOCK // row_bytes)
+    if max_rows < 1:
+        raise ValueError(f"f32 fuzzy-LUT kernel: one row needs {row_bytes} B of "
+                         f"shared memory, more than {SMEM_PER_BLOCK}")
+    kpad = _pad(kbig, TREE_PITCH)
+    tree_bytes = 16 * i * kpad * len(ks)
+    if tree_bytes + max_rows * row_bytes > SMEM_PER_BLOCK:
+        kpad, tree_bytes = 0, 0                   # trees through L1
+    return F32Plan(regs, width, kstride, kpad, tree_bytes, max_rows)
+
+
+_N_SM: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _N_SM[idx]
+
+
+def f32_launch_shape(plan: F32Plan, t: int, n_sm: int) -> tuple[int, int, int, int]:
+    """(rows per block, grid, threads, shared bytes) of a launch over ``t``
+    rows: one warp per row, about one block per SM (MLP-B's bucket of 4096
+    rows is 128 blocks of 32 on 132 SMs: one wave)."""
+    rows = max(1, min(plan.max_rows, -(-t // n_sm)))
+    return rows, -(-t // rows), 32 * rows, plan.smem_bytes(rows)
+
+
+def f32_geom(plan: F32Plan, ks, k0, kmax, nmax, n_out, v, depth) -> _lib.F32Geom:
+    """The kernel's by-value geometry of a launch planned by ``plan``."""
+    geom = _lib.F32Geom(L=len(ks), k0=k0, kmax=kmax, nmax=nmax, n_out=n_out, v=v,
+                        depth=depth, kpad=plan.kpad, regs=int(plan.regs),
+                        width=plan.width, kstride=plan.kstride)
+    geom.ks[:len(ks)] = list(ks)
+    return geom
+
+
+# the launch counter of each f32 C entry
+_COUNTER = {"fuzzy_lut_f32": "fuzzy_lut", "fuzzy_lut_stack_f32": "fuzzy_lut_stack"}
+
+
+def _launch_f32(fn_name, x, features, thresholds, lut, bias, ks, n_out, depth, leaves):
+    """Plan and launch ``fn_name`` (one bank, or a stack when ``bias`` is
+    given); returns ``y [T, n_out]``. ``leaves`` is None or an int32
+    ``[L, T, Kmax]`` (a bank's ``[T, K]``) output."""
+    t, k0, v = x.shape
+    kmax, nmax = lut.shape[-3], lut.shape[-1]
+    y = torch.empty((t, n_out), dtype=torch.float32, device=x.device)
+    if not t:
+        return y
+    plan = plan_f32(tuple(ks), v, depth, kmax)
+    _, grid, threads, smem = f32_launch_shape(plan, t, _sm_count(x.device))
+    geom = f32_geom(plan, ks, k0, kmax, nmax, n_out, v, depth)
+    args = [x, features, thresholds, lut] + ([bias] if bias is not None else [])
+    _cuda_call(fn_name, x.device, *(p.data_ptr() for p in args), y.data_ptr(),
+               None if leaves is None else leaves.data_ptr(), t, geom, grid,
+               threads, smem)
+    _lib.LAUNCHES[_COUNTER[fn_name]] += 1
+    return y
 
 
 def _expect(cond: bool, msg: str) -> None:
@@ -103,21 +215,6 @@ def _bank_plain(x, features, thresholds, lut, scales):
     return lut_gather_sum(lut, leaves, scales), leaves
 
 
-def _bank_launch(x, features, thresholds, lut, depth, return_leaves):
-    t, k, v = x.shape
-    n = lut.shape[2]
-    y = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    leaves = (torch.empty((t, k), dtype=torch.int32, device=x.device)
-              if return_leaves else None)
-    if t:
-        ptrs = [x, features, thresholds, lut]
-        _cuda_call("fuzzy_lut_f32", x.device, *(p.data_ptr() for p in ptrs),
-                   y.data_ptr(), None if leaves is None else leaves.data_ptr(),
-                   t, k, v, depth, n, _rows(4 * k, "fuzzy_lut_f32"))
-        _lib.LAUNCHES["fuzzy_lut"] += 1
-    return (y, leaves) if return_leaves else y
-
-
 def fuzzy_lut_plain(x, features, thresholds, lut):
     """Plain version of the per-bank f32 kernel: ``(y [T,N], leaves [T,K])``."""
     return _bank_plain(x, features, thresholds, lut, None)
@@ -137,7 +234,12 @@ def fuzzy_lut(x: torch.Tensor, features: torch.Tensor,
     if x.device.type == "cpu":
         y, leaves = fuzzy_lut_plain(x, features, thresholds, lut)
         return (y, leaves.to(torch.int32)) if return_leaves else y
-    return _bank_launch(x, features, thresholds, lut, depth, return_leaves)
+    t, k, _ = x.shape
+    leaves = (torch.empty((t, k), dtype=torch.int32, device=x.device)
+              if return_leaves else None)
+    y = _launch_f32("fuzzy_lut_f32", x, features, thresholds, lut, None, (k,),
+                    lut.shape[2], depth, leaves)
+    return (y, leaves) if return_leaves else y
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +252,7 @@ def stack_fits(k0: int, v: int, kmax: int, nmax: int, layers: int) -> bool:
     """Can the stacked kernel take this geometry (layer count and shared
     memory for one row)?"""
     width = max(k0 * v, nmax)
-    return layers <= _lib.MAX_L and 4 * (width + kmax) <= SMEM_BYTES
+    return layers <= _lib.MAX_L and 4 * (width + kmax) <= STACK_ROW_BYTES
 
 
 def _check_stack(where, x, features, thresholds, lut, lut_dtype, bias, ks,
@@ -197,27 +299,6 @@ def _stack_plain(x, features, thresholds, lut, bias, ks, n_out, scales):
     return y[:, :n_out], torch.stack(all_leaves)
 
 
-def _stack_launch(x, features, thresholds, lut, bias, ks, n_out, depth,
-                  return_leaves):
-    t, k0, v = x.shape
-    nl, kmax, _, nmax = lut.shape
-    y = torch.empty((t, n_out), dtype=torch.float32, device=x.device)
-    # padded groups are never walked; they would land on leaf 0
-    leaves = (torch.zeros((nl, t, kmax), dtype=torch.int32, device=x.device)
-              if return_leaves else None)
-    if t:
-        width = max(k0 * v, nmax)
-        geom = _lib.StackGeom(L=nl, k0=k0, kmax=kmax, nmax=nmax, n_out=n_out,
-                              v=v, depth=depth, width=width)
-        geom.ks[:nl] = list(ks)
-        ptrs = [x, features, thresholds, lut, bias]
-        _cuda_call("fuzzy_lut_stack_f32", x.device, *(p.data_ptr() for p in ptrs),
-                   y.data_ptr(), None if leaves is None else leaves.data_ptr(),
-                   t, geom, _rows(4 * (width + kmax), "fuzzy_lut_stack_f32"))
-        _lib.LAUNCHES["fuzzy_lut_stack"] += 1
-    return (y, leaves) if return_leaves else y
-
-
 def fuzzy_lut_stack_plain(x, features, thresholds, lut, bias, ks, n_out):
     """Plain version of the stacked f32 kernel:
     ``(y [T, n_out], leaves [L, T, Kmax])``."""
@@ -244,5 +325,10 @@ def fuzzy_lut_stack(x: torch.Tensor, features: torch.Tensor,
         y, leaves = fuzzy_lut_stack_plain(x, features, thresholds, lut, bias,
                                           ks, n_out)
         return (y, leaves.to(torch.int32)) if return_leaves else y
-    return _stack_launch(x, features, thresholds, lut, bias, ks, n_out, depth,
-                         return_leaves)
+    nl, kmax = lut.shape[:2]
+    # padded groups are never walked; they would land on leaf 0
+    leaves = (torch.zeros((nl, x.shape[0], kmax), dtype=torch.int32,
+                          device=x.device) if return_leaves else None)
+    y = _launch_f32("fuzzy_lut_stack_f32", x, features, thresholds, lut, bias, ks,
+                    n_out, depth, leaves)
+    return (y, leaves) if return_leaves else y

@@ -23,7 +23,8 @@ import torch
 
 from . import _lib
 from .kernel import (
-    _bank_plain, _check_bank, _check_stack, _cuda_call, _stack_plain,
+    SMEM_PER_BLOCK, _bank_plain, _check_bank, _check_stack, _cuda_call, _pad, _sm_count,
+    _stack_plain,
 )
 
 __all__ = ["Q8Plan", "Q8Stage", "Q8_SMEM_BYTES", "launch_shape", "quantize_lut_int8",
@@ -32,7 +33,7 @@ __all__ = ["Q8Plan", "Q8Stage", "Q8_SMEM_BYTES", "launch_shape", "quantize_lut_i
 
 # Shared memory one block may opt into on Hopper (227 KB), and the part of
 # it the mbarriers take (csrc/fuzzy_lut_q8.cuh: Q8_BAR_BYTES).
-Q8_SMEM_BYTES = 232448
+Q8_SMEM_BYTES = SMEM_PER_BLOCK
 Q8_BAR_BYTES = 128
 # At most this much holds the rows' activations and leaves (at least one
 # row); the rest is the two ring slots.
@@ -109,10 +110,6 @@ class Q8Plan:
     def smem_bytes(self, rows: int) -> int:
         return (Q8_BAR_BYTES + self.table_bytes + 2 * self.slot_bytes
                 + rows * self.row_bytes)
-
-
-def _pad(nbytes: int, to: int = BULK_ALIGN) -> int:
-    return -(-nbytes // to) * to
 
 
 def _pack(parts):
@@ -254,15 +251,7 @@ def _group_fills(stages, cap):
     return tuple(placed), tuple(map(tuple, fills)), slot
 
 
-_N_SM: dict[int, int] = {}
 _STAGE_TABLES: dict[tuple, torch.Tensor] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _N_SM:
-        _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _N_SM[idx]
 
 
 def _stage_table(plan: Q8Plan, device: torch.device) -> torch.Tensor:

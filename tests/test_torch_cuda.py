@@ -40,7 +40,7 @@ def test_bank_kernels_match_plain(dev, shape):
     y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
     wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
     assert torch.equal(lv.long(), wl)
-    torch.testing.assert_close(y, wy, rtol=TOL, atol=TOL)
+    assert torch.equal(y, wy)
     q, s = Q.quantize_lut_int8(lut)
     y, lv = Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True)
     wy, wl = Q.fuzzy_lut_q8_plain(x, f, th, q, s)
@@ -67,7 +67,7 @@ def test_stack_kernels_match_plain(dev):
     y, lv = K.fuzzy_lut_stack(x, f, th, lt, b, ks=ks, n_out=n_out, return_leaves=True)
     wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lt, b, ks, n_out)
     assert torch.equal(lv.long(), wl)
-    torch.testing.assert_close(y, wy, rtol=TOL, atol=TOL)
+    assert torch.equal(y, wy)
     q, s = Q.quantize_lut_int8(lt.reshape(nl * kmax, c, nmax))
     q, s = q.reshape(lt.shape).contiguous(), s.reshape(nl, kmax).contiguous()
     y = Q.fuzzy_lut_stack_q8(x, f, th, q, s, b, ks=ks, n_out=n_out)
@@ -170,5 +170,48 @@ def test_q8_stack_kernel_bit_equal(dev, geom, offset):
     y, lv = Q.fuzzy_lut_stack_q8(x, f, th, q, s, b, ks=ks, n_out=n_out,
                                  return_leaves=True)
     wy, wl = Q.fuzzy_lut_stack_q8_plain(x, f, th, q, s, b, ks, n_out)
+    assert torch.equal(lv.long(), wl)
+    assert torch.equal(y, wy)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("shape", Q8_BANKS)
+def test_f32_bank_kernel_bit_equal(dev, shape, offset):
+    """The f32 bank at the shapes the int8 one faces: row in registers
+    (K*v <= 32) or read from global memory, leaves by shuffle or in shared
+    memory (K=256), trees node-major in shared memory."""
+    x, f, th, lut = _bank(np.random.default_rng(sum(shape)), *shape, dev)
+    if offset:
+        f, th, lut = (_offset_view(a) for a in (f, th, lut))
+    before = _lib.LAUNCHES["fuzzy_lut"]
+    y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["fuzzy_lut"] == before + 1
+    wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
+    assert torch.equal(lv.long(), wl)
+    assert torch.equal(y, wy)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("geom", Q8_STACKS, ids=["mlp-b", "ragged", "t1", "wide"])
+def test_f32_stack_kernel_bit_equal(dev, geom, offset):
+    ks, n_out = geom["ks"], geom["n_out"]
+    x, f, th, lt, b = _stack(np.random.default_rng(9), dev=dev, **geom)
+    if offset:
+        f, th, lt, b = (_offset_view(a) for a in (f, th, lt, b))
+    y, lv = K.fuzzy_lut_stack(x, f, th, lt, b, ks=ks, n_out=n_out, return_leaves=True)
+    wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lt, b, ks, n_out)
+    assert torch.equal(lv.long(), wl)
+    assert torch.equal(y, wy)
+
+
+def test_f32_stack_kernel_reads_trees_through_l1(dev):
+    """A stack whose trees do not fit beside its rows (depth 8, 200 groups
+    of width 1): the descent reads the [K, I] layout through L1."""
+    geom = dict(t=333, ks=(200, 120), v=1, depth=8, nmax=200, n_out=77)
+    assert K.plan_f32(geom["ks"], 1, 8, 200).kpad == 0
+    x, f, th, lt, b = _stack(np.random.default_rng(3), dev=dev, **geom)
+    y, lv = K.fuzzy_lut_stack(x, f, th, lt, b, ks=geom["ks"], n_out=77, return_leaves=True)
+    wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lt, b, geom["ks"], 77)
     assert torch.equal(lv.long(), wl)
     assert torch.equal(y, wy)

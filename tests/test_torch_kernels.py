@@ -377,3 +377,96 @@ def test_q8_plan_for_every_geometry_the_stack_admits(v, depth):
     assert K.stack_fits(ks[0], v, ks[0], 2048, 3)
     _check_q8_plan(Q.plan_q8(ks, v, depth, ks[0], 2048, 2048, has_bias=True), ks, v, 2048,
                    depth, 2048)
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernels' launch planner (plain Python; the kernel runs on the card)
+# ---------------------------------------------------------------------------
+
+
+def _check_f32_plan(plan, ks, v, depth, t=4096, n_sm=132):
+    """One row per warp within a block's shared memory; the row in
+    registers exactly when every layer's input fits a warp; a row of LUT
+    row indices that covers every layer's groups in whole chunks; resident
+    trees node-major with a pitch that is a multiple of 16 and covers every
+    layer's groups."""
+    assert 1 <= plan.max_rows <= K.F32_MAX_ROWS
+    assert plan.smem_bytes(plan.max_rows) <= K.SMEM_PER_BLOCK
+    assert plan.regs == all(k * v <= 32 for k in ks)
+    if not plan.regs and len(ks) > 1:
+        assert plan.width >= max(k * v for k in ks) and plan.width % 4 == 0
+    else:
+        assert plan.width == 0
+    assert plan.kstride % K.F32_CHUNK == 0 and max(ks) <= plan.kstride < max(ks) + K.F32_CHUNK
+    if plan.kpad:
+        assert plan.kpad % K.TREE_PITCH == 0 and plan.kpad >= max(ks)
+        assert plan.tree_bytes == 16 * (2**depth - 1) * plan.kpad * len(ks)
+    else:
+        assert plan.tree_bytes == 0
+    rows, grid, threads, smem = K.f32_launch_shape(plan, t, n_sm)
+    assert rows * grid >= t > rows * (grid - 1)
+    assert threads == 32 * rows <= 1024 and smem <= K.SMEM_PER_BLOCK
+
+
+def test_f32_plan_mlp_b_row_in_registers_trees_on_chip():
+    """MLP-B (v=2, depth 6, hidden 32), stacked or as banks: the row in
+    registers, every layer's trees node-major in shared memory with a pitch
+    of 16 (beside their raw copies), 16 LUT row indices per warp, and the
+    bucket of 4096 rows in one wave of 128 blocks of 32 warps on 132 SMs."""
+    plan = K.plan_f32((8, 16, 16, 16), 2, 6, 16)
+    _check_f32_plan(plan, (8, 16, 16, 16), 2, 6)
+    assert (plan.regs, plan.width, plan.kstride, plan.kpad) == (True, 0, 16, 16)
+    trees = 4 * 2 * 63 * 16 * 8
+    assert plan.tree_bytes == trees
+    assert K.f32_launch_shape(plan, 4096, 132) == (32, 128, 1024, trees + 32 * 64)
+    assert K.f32_launch_shape(plan, 1, 132) == (1, 1, 32, trees + 64)
+    for k in (8, 16):
+        bank = K.plan_f32((k,), 2, 6, k)
+        _check_f32_plan(bank, (k,), 2, 6)
+        assert (bank.regs, bank.kpad, bank.tree_bytes) == (True, 16, 2 * 63 * 16 * 8)
+
+
+@pytest.mark.parametrize("shape", [(16, 2, 6), (256, 2, 6), (13, 4, 5), (3, 2, 1)],
+                         ids=["mlp-b", "k256", "ragged", "t1"])
+def test_f32_plan_banks(shape):
+    """A lone bank keeps no activation row on chip: in registers, or read
+    from global memory. The K=256 bank's trees (126 KiB, twice over with
+    their raw copy) do not fit: its descent reads them through L1."""
+    k, v, depth = shape
+    plan = K.plan_f32((k,), v, depth, k)
+    _check_f32_plan(plan, (k,), v, depth)
+    assert plan.width == 0
+    if k == 256:
+        assert plan.kstride == 256 and plan.kpad == 0 and plan.max_rows == 32
+
+
+def test_f32_plan_reads_trees_through_l1_where_they_do_not_fit():
+    plan = K.plan_f32((200, 120), 1, 8, 200)
+    _check_f32_plan(plan, (200, 120), 1, 8)
+    assert plan.kpad == 0 and plan.tree_bytes == 0
+    assert (plan.width, plan.kstride) == (200, 208)
+
+
+@pytest.mark.parametrize("v", [1, 2, 4])
+@pytest.mark.parametrize("depth", [1, 4, 6, 8])
+def test_f32_plan_for_every_geometry_the_stack_admits(v, depth):
+    """Every geometry ``stack_fits`` admits, up to Nmax = 2048 (the fusion
+    cap), gets an f32 plan: the redesign refuses no stack that fuses."""
+    rng = np.random.default_rng(200 * v + depth)
+    planned = 0
+    for _ in range(60):
+        nl = int(rng.integers(1, 6))
+        nmax = int(rng.choice([1, 3, 16, 32, 70, 256, 1000, 2048]))
+        kcap = max(1, nmax // v)
+        k0 = int(rng.integers(1, 4 * kcap + 1))
+        ks = (k0,) + tuple(int(rng.integers(1, kcap + 1)) for _ in range(nl - 1))
+        kmax = max(ks)
+        if not K.stack_fits(k0, v, kmax, nmax, nl):
+            continue
+        _check_f32_plan(K.plan_f32(ks, v, depth, kmax), ks, v, depth,
+                        t=int(rng.integers(1, 9000)))
+        planned += 1
+    assert planned > 20
+    ks = (2048 // v,) * 3
+    assert K.stack_fits(ks[0], v, ks[0], 2048, 3)
+    _check_f32_plan(K.plan_f32(ks, v, depth, ks[0]), ks, v, depth)
