@@ -12,7 +12,10 @@ Phases (any failure exits nonzero; none is caught and passed over):
      MLP-B shapes at T=4096, at a ragged shape, at T=1 and at wide shapes
      (wider than a shared-memory ring slot or a warp, untimed): leaves
      exact, outputs bit-equal; time both with CUDA events, each f32 kernel
-     and its int8 counterpart in turns (f32, int8, int8, f32);
+     and its int8 counterpart in turns (f32, int8, int8, f32); then the
+     same, timed, at every geometry the other families launch, at the rows
+     one served batch of 4096 flows gives it (depth 12 with v=6 at 24,576
+     rows, K = 62 and 64 at 32,768 rows, the four-layer AE stack ...);
   4. the main path, as ``python -m repro_torch.launch.serve --pegasus``
      runs it at full size: peerrush traffic (1500 flows/class), the MLP-B
      teacher trained 800 steps on the card, ``pegasusify_mlp`` (v=2,
@@ -22,7 +25,16 @@ Phases (any failure exits nonzero; none is caught and passed over):
      show that the path went through them; a ``torch.profiler`` window
      over the fused ``kernel_q8`` run gives device time by kernel name and
      the device's idle share;
-  5. a ``{"kernels": [...]}`` line, then the device line as the last line.
+  5. the families: RNN, CNN-B, CNN-M (NAM), CNN-L and the AutoEncoder at
+     their published widths, each teacher trained on the card for its
+     default steps and pegasusified, then served (~32k flows of mixed-size
+     requests through ``PegasusServer``) on ``gather``, ``kernel`` and
+     ``kernel_q8``: ``kernel`` bit-equal to ``gather``, ``kernel_q8`` within
+     the reference's limits, the launch counts per served run exactly those
+     of the family's kernels; served macro-F1 beside the teacher's (the AE:
+     whole-net error and anomaly AUC); a ``torch.profiler`` window over the
+     RNN's ``kernel`` run;
+  6. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -68,6 +80,27 @@ T1_STACK = dict(t=1, ks=(3, 1), v=1, depth=1, nmax=3, n_out=1)
 WIDE_BANKS = [dict(t=300, k=16, v=2, depth=6, n=2048), dict(t=200, k=256, v=2, depth=6, n=40)]
 WIDE_STACK = dict(t=300, ks=(16, 16), v=2, depth=6, nmax=1024, n_out=1024)
 REQUEST_SIZES = (1, 7, 64, 300, 1000, 2500, 4096, 33)
+
+# Every geometry the other families launch, at the rows one served batch of
+# 4096 flows gives it, as (t, k, v, depth, n): the RNN's x, h and out banks;
+# the CNN-B and CNN-M window banks (6 windows per flow, depth 12, v=6); the
+# CNN-L encoder banks (8 packets per flow, K = 62 and 64, wider than a warp)
+FAMILY_BANKS = {"rnn-x": (4096, 2, 1, 8, 24), "rnn-h": (4096, 24, 1, 8, 24),
+                "rnn-out": (4096, 24, 1, 8, 3), "cnn-b-window": (24576, 1, 6, 12, 16),
+                "cnn-m-window": (24576, 1, 6, 12, 3), "cnn-l-b1": (32768, 62, 1, 8, 64),
+                "cnn-l-b2": (32768, 64, 1, 8, 16)}
+# the CNN-B head pair and the AE's four-layer stack (trees through L1)
+FAMILY_STACKS = {"cnn-b-heads": dict(t=4096, ks=(16, 24), v=1, depth=8, nmax=24, n_out=3),
+                 "ae": dict(t=4096, ks=(24, 12, 3, 12), v=1, depth=8, nmax=24, n_out=24)}
+# The families at their published widths (the reference nets' defaults):
+# teacher steps, and the launches one served batch makes on ``kernel``
+# (``kernel_q8`` launches the int8 instance of each)
+FAMILIES = {"rnn": dict(steps=900, per_batch={"fuzzy_lut": 16}),
+            "cnn_b": dict(steps=900, per_batch={"fuzzy_lut": 1, "fuzzy_lut_stack": 1}),
+            "cnn_m": dict(steps=900, per_batch={"fuzzy_lut": 1}),
+            "cnn_l": dict(steps=1000, per_batch={"fuzzy_lut": 2}),
+            "ae": dict(steps=400, per_batch={"fuzzy_lut_stack": 1})}
+Q8_NAME = {"fuzzy_lut": "fuzzy_lut_q8", "fuzzy_lut_stack": "fuzzy_lut_stack_q8"}
 
 
 def _setup_path() -> None:
@@ -307,6 +340,72 @@ def check_kernels(device, *, t: int = 4096, time_it: bool = True) -> dict:
     return out
 
 
+def check_family_kernels(device, *, rows: int | None = None, time_it: bool = True) -> list:
+    """Each kernel against its plain version at every family geometry
+    (``rows`` overrides the row count, for the rehearsal): leaves exact,
+    outputs bit-equal; each f32 kernel timed in turns with its int8
+    counterpart and the plain versions once, each beside its bound.
+    Returns one record per (geometry, kernel)."""
+    import numpy as np
+
+    from repro_torch.kernels.fuzzy_lut import kernel as K
+    from repro_torch.kernels.fuzzy_lut import quantized as Q
+
+    rng = np.random.default_rng(1)
+    recs = []
+
+    def add(geom, name, err, nbytes, ops, ms, plain):
+        rec = dict(geom=geom, kernel=name, max_abs_err=err, nbytes=nbytes, ops=ops)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+        if time_it:
+            rec.update(ms=ms, plain_ms=device_ms(plain, inner=3, reps=5))
+        recs.append(rec)
+
+    for geom, (t, k, v, depth, n) in FAMILY_BANKS.items():
+        p = bank_problem(rng, rows or t, k, v, depth, n, device)
+        x, f, th, lut = p["x"], p["features"], p["thresholds"], p["lut"]
+        q, s = Q.quantize_lut_int8(lut)
+        tag = f"{geom} T={x.shape[0]} K={k} v={v} d={depth} N={n}"
+        ms32, ms8 = (abba_ms(lambda: K.fuzzy_lut(x, f, th, lut),
+                             lambda: Q.fuzzy_lut_q8(x, f, th, q, s))
+                     if time_it else (None, None))
+        y, lv = K.fuzzy_lut(x, f, th, lut, return_leaves=True)
+        wy, wl = K.fuzzy_lut_plain(x, f, th, lut)
+        err = _compare("fuzzy_lut", tag, y, lv, wy, wl)
+        add(geom, "fuzzy_lut", err, *bank_bound(p, wl, q8=False), ms32,
+            lambda: K.fuzzy_lut_plain(x, f, th, lut))
+        y, lv = Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True)
+        wy, wl = Q.fuzzy_lut_q8_plain(x, f, th, q, s)
+        err = _compare("fuzzy_lut_q8", tag, y, lv, wy, wl)
+        add(geom, "fuzzy_lut_q8", err, *bank_bound(p, wl, q8=True), ms8,
+            lambda: Q.fuzzy_lut_q8_plain(x, f, th, q, s))
+        log(f"  checked per-bank kernels at {tag}")
+    for geom, shape in FAMILY_STACKS.items():
+        shape = dict(shape, t=rows or shape["t"])
+        ks, n_out = shape["ks"], shape["n_out"]
+        p = stack_problem(rng, device=device, **shape)
+        x, f, th, lut, b = (p[k] for k in ("x", "features", "thresholds", "lut", "bias"))
+        qs, sc = quantize_stack(lut)
+        tag = f"{geom} T={shape['t']} ks={ks} v={shape['v']} d={shape['depth']}"
+        ms32, ms8 = (abba_ms(
+            lambda: K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out),
+            lambda: Q.fuzzy_lut_stack_q8(x, f, th, qs, sc, b, ks=ks, n_out=n_out))
+            if time_it else (None, None))
+        y, lv = K.fuzzy_lut_stack(x, f, th, lut, b, ks=ks, n_out=n_out, return_leaves=True)
+        wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out)
+        err = _compare("fuzzy_lut_stack", tag, y, lv, wy, wl)
+        add(geom, "fuzzy_lut_stack", err, *stack_bound(p, wl, ks, n_out, q8=False), ms32,
+            lambda: K.fuzzy_lut_stack_plain(x, f, th, lut, b, ks, n_out))
+        y, lv = Q.fuzzy_lut_stack_q8(x, f, th, qs, sc, b, ks=ks, n_out=n_out,
+                                     return_leaves=True)
+        wy, wl = Q.fuzzy_lut_stack_q8_plain(x, f, th, qs, sc, b, ks, n_out)
+        err = _compare("fuzzy_lut_stack_q8", tag, y, lv, wy, wl)
+        add(geom, "fuzzy_lut_stack_q8", err, *stack_bound(p, wl, ks, n_out, q8=True), ms8,
+            lambda: Q.fuzzy_lut_stack_q8_plain(x, f, th, qs, sc, b, ks, n_out))
+        log(f"  checked stacked kernels at {tag}")
+    return recs
+
+
 def quantize_stack(lut):
     """Per-(layer, group) int8 codes and scales of a ``[L, Kmax, C, Nmax]``
     stack (all-zero padded groups get codes 0 and the 1e-8/127 floor
@@ -339,7 +438,7 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
 
     from repro_torch.data.synthetic_traffic import make_dataset
     from repro_torch.kernels.fuzzy_lut import _lib
-    from repro_torch.launch.serve import InferRequest, PegasusServer
+    from repro_torch.launch.serve import PegasusServer
     from repro_torch.nets.common import macro_f1
     from repro_torch.nets.mlp import mlp_apply, pegasusify_mlp, train_mlp
 
@@ -357,15 +456,8 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
         f"{[(b.num_groups, b.out_features) for b in banks]} (K, N) banks at "
         f"depth {depth} in {peg_s:.2f} s")
 
-    x_test = ds.test["stats"].astype(np.float32)
-    reps = -(-n_serve // len(x_test))
-    x = np.tile(x_test, (reps, 1))[:n_serve]
-    y = np.tile(ds.test["label"], reps)[:n_serve]
-    requests, start, i = [], 0, 0
-    while start < n_serve:
-        size = min(REQUEST_SIZES[i % len(REQUEST_SIZES)], n_serve - start)
-        requests.append(InferRequest("mlp-b", x[start : start + size]))
-        start, i = start + size, i + 1
+    requests, (x,) = _requests("mlp-b", (ds.test["stats"].astype(np.float32),), n_serve)
+    y = np.tile(ds.test["label"], -(-n_serve // len(ds.test["label"])))[:n_serve]
     with torch.no_grad():
         teacher = mlp_apply(mlp, torch.as_tensor(x, device=device)).argmax(-1).cpu().numpy()
     res = dict(teacher_f1=macro_f1(teacher, y, ds.num_classes), runs={},
@@ -433,6 +525,195 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
     return res
 
 
+def _requests(model: str, arrays: tuple, n_serve: int) -> tuple[list, tuple]:
+    """``n_serve`` flows of ``arrays`` (each tiled along axis 0) as
+    mixed-size requests; returns the requests and the tiled arrays."""
+    import numpy as np
+
+    from repro_torch.launch.serve import InferRequest
+
+    reps = -(-n_serve // len(arrays[0]))
+    tiled = tuple(np.concatenate([a] * reps)[:n_serve] for a in arrays)
+    requests, start, i = [], 0, 0
+    while start < n_serve:
+        size = min(REQUEST_SIZES[i % len(REQUEST_SIZES)], n_serve - start)
+        part = tuple(a[start : start + size] for a in tiled)
+        requests.append(InferRequest(model, part if len(part) > 1 else part[0]))
+        start, i = start + size, i + 1
+    return requests, tiled
+
+
+def _pegasusified(name, ds, device, *, steps: int, tiny: bool):
+    """Train ``name``'s teacher on ``device`` and pegasusify it at the
+    family's published widths (tiny depths for the rehearsal). Returns the
+    model, the teacher's forward over the served inputs, and the inputs of
+    the test split."""
+    import numpy as np
+
+    from repro_torch.nets import autoencoder as ae
+    from repro_torch.nets import cnn, rnn
+
+    tr, te, nc = ds.train, ds.test, ds.num_classes
+    if name == "rnn":
+        m = rnn.train_rnn(tr["seq"], tr["label"], nc, steps=steps, device=device)
+        peg = rnn.pegasusify_rnn(m, tr["seq"], depth=3 if tiny else 8)
+        return peg, lambda x: rnn.rnn_apply(m.params, x), (te["seq"],)
+    if name in ("cnn_b", "cnn_m"):
+        m = cnn.train_cnn(tr["seq"], tr["label"], nc, size=name[-1].upper(), steps=steps,
+                          device=device)
+        peg = cnn.pegasusify_cnn(m, tr["seq"], depth=4 if tiny else 12)
+        return peg, lambda x: cnn.cnn_apply(m, x), (te["seq"],)
+    if name == "cnn_l":
+        m = cnn.train_cnn_l(tr["seq"], tr["bytes"], tr["label"], nc, steps=steps,
+                            device=device)
+        peg = cnn.pegasusify_cnn_l(m, tr["seq"], tr["bytes"], enc_depth=3 if tiny else 8,
+                                   index_bits=3 if tiny else 8)
+        return peg, lambda s, p: cnn.cnn_l_apply(m, s, p), (te["seq"], te["bytes"])
+    x = tr["seq"].reshape(len(tr["label"]), -1)
+    m = ae.train_autoencoder(x, steps=steps, device=device)
+    banks = ae.pegasusify_ae(m, x.astype(np.float32), depth=3 if tiny else 8)
+    feats = ae.anomaly_features(te["seq"].reshape(len(te["label"]), -1)).numpy()
+    return banks, m, (feats,)
+
+
+def _ae_aucs(ds, teacher, banks, device) -> dict:
+    """Anomaly AUC (malware, dos) of the teacher and of each backend
+    through ``pegasus_ae_error``."""
+    import torch
+
+    from repro_torch.data.synthetic_traffic import anomaly_testset
+    from repro_torch.nets import autoencoder as ae
+
+    out = {}
+    for kind in ("malware", "dos"):
+        test = anomaly_testset(ds, kind=kind)
+        x = test["seq"].reshape(len(test["label"]), -1)
+        with torch.no_grad():
+            scores = {"teacher": ae.reconstruction_error(teacher, x)}
+            for be in ("gather", "kernel", "kernel_q8"):
+                scores[be] = ae.pegasus_ae_error(banks, x, backend=be, device=device)
+        for who, sc in scores.items():
+            out[(kind, who)] = ae.auc_score(sc.cpu().numpy(), test["label"])
+    return out
+
+
+def family_path(name, ds, device, *, steps: int, tiny: bool = False,
+                n_serve: int = 32768) -> dict:
+    """One family through the port's entry points: train, pegasusify and
+    serve ``n_serve`` flows as mixed-size requests on gather, kernel and
+    kernel_q8; ``kernel`` must equal ``gather`` bit for bit, ``kernel_q8``
+    stay within the reference's limits, and the launch counts show which
+    kernels each served run went through."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import bucket_chunks
+    from repro_torch.kernels.fuzzy_lut import _lib
+    from repro_torch.launch.serve import PegasusServer
+    from repro_torch.nets.common import macro_f1
+
+    t0 = time.perf_counter()
+    model, teacher, inputs = _pegasusified(name, ds, device, steps=steps, tiny=tiny)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    requests, tiled = _requests(name, inputs, n_serve)
+    y = np.tile(ds.test["label"], -(-n_serve // len(ds.test["label"])))[:n_serve]
+    res = dict(build_s=build_s, runs={}, requests=len(requests))
+    if name != "ae":
+        with torch.no_grad():
+            logits = teacher(*(torch.as_tensor(a, device=device) for a in tiled))
+        res["teacher_f1"] = macro_f1(logits.argmax(-1).cpu().numpy(), y, ds.num_classes)
+    launches = dict.fromkeys(_lib.LAUNCHES, 0)
+    for backend in ("gather", "kernel", "kernel_q8"):
+        server = PegasusServer(model, backend=backend, device=device)
+        server.serve(requests)                       # first use of every bucket
+        _sync(device)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        results = server.serve(requests)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        got = dict(_lib.LAUNCHES)
+        for k, n in got.items():
+            launches[k] += n
+        out = np.concatenate([r.output for r in results])
+        n_out = inputs[0].shape[1] if name == "ae" else ds.num_classes
+        if out.shape != (n_serve, n_out) or not np.isfinite(out).all():
+            raise AssertionError(f"{name} {backend}: output {out.shape} not finite of "
+                                 "the expected shape")
+        batches = len(bucket_chunks(n_serve, server.plan.buckets, server.max_batch))
+        run = dict(out=out, flows_per_s=n_serve / dt, launches=got, batches=batches,
+                   server=server)
+        if name != "ae":
+            run["f1"] = macro_f1(out.argmax(-1), y, ds.num_classes)
+        if device.type == "cuda":
+            want = {} if backend == "gather" else {
+                (k if backend == "kernel" else Q8_NAME[k]): n * batches
+                for k, n in FAMILIES[name]["per_batch"].items()}
+            if {k: n for k, n in got.items() if n} != want:
+                raise AssertionError(f"{name} {backend}: launches {got}; expected {want}")
+        res["runs"][backend] = run
+        banks = [(b.layer.num_groups, b.layer.group_size, b.layer.num_centroids,
+                  b.layer.out_features) for b in server.plan.banks]
+    res["banks"], res["launches"] = banks, launches
+
+    ref = res["runs"]["gather"]["out"]
+    kern = res["runs"]["kernel"]
+    kern["max_abs_err"] = float(np.abs(kern["out"] - ref).max())
+    if not np.array_equal(kern["out"], ref):
+        raise AssertionError(f"{name} kernel: not bit-equal to gather "
+                             f"(max |kernel - gather| {kern['max_abs_err']})")
+    q8 = res["runs"]["kernel_q8"]
+    plan = q8["server"].plan
+    rels = []
+    with torch.no_grad():
+        for bank, xb in zip(plan.banks, plan.bank_inputs(*tiled)):
+            yg, yq = bank.apply(xb, "gather"), bank.apply(xb, "kernel_q8")
+            rels.append(float(torch.linalg.norm(yq - yg))
+                        / max(float(torch.linalg.norm(yg)), 1e-6))
+    q8["bank_rel"] = rels
+    q8["net_rel"] = float(np.linalg.norm(q8["out"] - ref) / np.linalg.norm(ref))
+    if name == "ae":
+        q8["agree"] = None
+        res["auc"] = _ae_aucs(ds, teacher, model, device)
+    else:
+        q8["agree"] = float((q8["out"].argmax(-1) == ref.argmax(-1)).mean())
+    if max(rels) >= Q8_BANK_REL or (q8["agree"] is not None and q8["agree"] < Q8_AGREE):
+        raise AssertionError(f"{name} kernel_q8: per-bank rel max {max(rels)} "
+                             f"(< {Q8_BANK_REL}), agreement {q8['agree']} (>= {Q8_AGREE})")
+    if device.type == "cuda" and name == "rnn":
+        res["profile"] = profile_window(kern["server"], requests)
+    return res
+
+
+def families_phase(device, *, flows_per_class: int = 1500, steps: int | None = None,
+                   tiny: bool = False, n_serve: int = 32768) -> dict:
+    """RNN, CNN-B, CNN-M, CNN-L and the AutoEncoder, each through
+    :func:`family_path` on peerrush traffic (``steps`` overrides every
+    teacher's default)."""
+    from repro_torch.data.synthetic_traffic import make_dataset
+
+    ds = make_dataset("peerrush", flows_per_class=flows_per_class)
+    out = {}
+    for name, cfg in FAMILIES.items():
+        out[name] = res = family_path(name, ds, device, steps=steps or cfg["steps"],
+                                      tiny=tiny, n_serve=n_serve)
+        for be, run in res["runs"].items():
+            f1 = "" if name == "ae" else f", served macro-F1 {run['f1']:.4f} " \
+                f"(teacher {res['teacher_f1']:.4f})"
+            log(f"  {name} {be}: {run['flows_per_s']:.1f} flows/s over {run['batches']} "
+                f"batches, launches {({k: n for k, n in run['launches'].items() if n})}{f1}")
+        q8 = res["runs"]["kernel_q8"]
+        log(f"  {name}: banks (K, v, C, N) {res['banks']}, built in {res['build_s']:.2f} s; "
+            f"max |kernel - gather| {res['runs']['kernel']['max_abs_err']}; kernel_q8 "
+            f"per-bank rel {['%.4f' % r for r in q8['bank_rel']]}, whole-net rel "
+            f"{q8['net_rel']:.4f}, argmax agreement {q8['agree']}")
+        if name == "ae":
+            log("  ae anomaly AUC: " + ", ".join(
+                f"{kind}/{who} {auc:.4f}" for (kind, who), auc in res["auc"].items()))
+    return out
+
+
 def profile_window(server, requests) -> dict | None:
     """``torch.profiler`` over one served run of ``server``: device time by
     kernel name and the device's idle share over the window (the span from
@@ -494,6 +775,8 @@ def main(argv=None) -> int:
         device = torch.device("cpu")
         check_kernels(device, t=64, time_it=False)
         res = main_path(device, flows_per_class=48, steps=5, depth=3, n_serve=300)
+        check_family_kernels(device, rows=64, time_it=False)
+        families_phase(device, flows_per_class=48, steps=5, tiny=True, n_serve=300)
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -528,6 +811,14 @@ def main(argv=None) -> int:
         a, b = checks[f32]["ms"], checks[q8]["ms"]
         log(f"  f32 vs int8, timed in turns: {f32} {a:.5f} ms, {q8} {b:.5f} ms "
             f"(f32/int8 = {a / b:.3f}, int8/f32 = {b / a:.3f}) on {smi}")
+    log("kernels vs plain versions at the family geometries:")
+    for rec in check_family_kernels(device):
+        checks[rec["kernel"]]["max_abs_err"] = max(checks[rec["kernel"]]["max_abs_err"],
+                                                   rec["max_abs_err"])
+        log(f"  {rec['geom']:13s} {rec['kernel']:19s} max_abs_err {rec['max_abs_err']}, "
+            f"{rec['ms']:.5f} ms per launch (plain {rec['plain_ms']:.5f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms by {rec['bound_by']}: {rec['nbytes']} B, "
+            f"{rec['ops']} ops) on {smi}")
 
     log("main path:")
     res = main_path(device)
@@ -546,12 +837,26 @@ def main(argv=None) -> int:
         for name, us in prof["by_name"].items():
             log(f"  device {us:10.1f} us  {name[:110]}")
 
+    log("families:")
+    fams = families_phase(device)
+    prof = fams["rnn"]["profile"]
+    if prof is None:
+        log("profiler window (rnn kernel served run): device time not measured "
+            "(the trace holds no device events)")
+    else:
+        log(f"profiler window (rnn kernel served run, {smi}): window "
+            f"{prof['window_us']:.1f} us, device busy {prof['busy_us']:.1f} us, idle share "
+            f"{prof['idle_share']:.4f}")
+        for name, us in prof["by_name"].items():
+            log(f"  device {us:10.1f} us  {name[:110]}")
+
     lines = []
     for name, source, replaces in KERNELS:
         rec = checks[name]
+        launches = res["launches"][name] + sum(f["launches"][name] for f in fams.values())
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=res["launches"][name], max_abs_err=rec["max_abs_err"],
+            launches=launches, max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=None))
     log(json.dumps({"kernels": lines}))

@@ -29,7 +29,8 @@ from .fuzzy_tree import FuzzyTree, fit_tree, hard_index_stacked, stack_trees
 from .lut import build_matmul_lut
 from .quantization import choose_qspec, fake_quant_spec
 
-__all__ = ["PegasusLinear", "init_pegasus_linear", "apply_gather", "apply_onehot"]
+__all__ = ["PegasusLinear", "init_pegasus_linear", "init_pegasus_bank", "apply_gather",
+           "apply_onehot"]
 
 
 @dataclasses.dataclass
@@ -120,6 +121,44 @@ def init_pegasus_linear(
             np.asarray(bias, np.float32), device=dev),
         group_size=group_size,
     )
+
+
+def init_pegasus_bank(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    calibration: np.ndarray,
+    *,
+    group_size: int,
+    depth: int,
+    bias: np.ndarray | None = None,
+    device: str | torch.device = "cuda",
+) -> PegasusLinear:
+    """Generic table bank: LUT rows are ``fn`` of the stacked centroids.
+
+    ``fn: [K, C, v] → [K, C, N]`` may be any offline computation on
+    ``device`` — a whole per-window sub-network for Advanced-Fusion/NAM
+    banks (paper Fig. 5 ③), or a post-matmul nonlinearity fold for a
+    single-group bank (``K == 1``: the SumReduce is trivial, so
+    ``relu(c@W+b)`` may live in the rows directly).
+    """
+    dev = resolve_device(device)
+    calibration = np.asarray(calibration, np.float32)
+    d = calibration.shape[1]
+    if d % group_size:
+        raise ValueError(f"D={d} not divisible by group v={group_size}")
+    k = d // group_size
+    stacked = stack_trees([
+        fit_tree(calibration[:, g * group_size : (g + 1) * group_size], depth)
+        for g in range(k)
+    ]).to(dev)
+    lut = fn(stacked.centroids).to(torch.float32)
+    if lut.dim() != 3 or tuple(lut.shape[:2]) != (k, 2**depth):
+        raise ValueError(f"fn returned rows of shape {tuple(lut.shape)}; "
+                         f"expected [{k}, {2**depth}, N]")
+    return PegasusLinear(
+        trees=stacked, lut=lut.contiguous(),
+        bias=None if bias is None else torch.as_tensor(
+            np.asarray(bias, np.float32), device=dev),
+        group_size=group_size)
 
 
 def _group(x: torch.Tensor, k: int, v: int) -> torch.Tensor:

@@ -2,9 +2,9 @@
 CICIOT / ISCXVPN (paper §7.1) — a numpy copy of
 ``repro.data.synthetic_traffic`` kept inside the port.
 
-``make_dataset`` returns arrays bit-identical to the reference's for the
-same name and seed (the tests hold it to that), so the port and the JAX
-package train and serve on the same flows.
+``make_dataset`` and ``anomaly_testset`` return arrays bit-identical to
+the reference's for the same arguments and seed (the tests hold them to
+that), so the port and the JAX package train and serve on the same flows.
 
 Datasets (name → #classes): ``peerrush`` → 3, ``ciciot`` → 3, ``iscxvpn`` → 7.
 Feature views per flow window (W = 8 packets):
@@ -19,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["TrafficDataset", "make_dataset", "DATASETS"]
+__all__ = ["TrafficDataset", "make_dataset", "DATASETS", "anomaly_testset"]
 
 DATASETS = {"peerrush": 3, "ciciot": 3, "iscxvpn": 7}
 WINDOW = 8
@@ -123,3 +123,54 @@ def make_dataset(
         val=split(n_tr, n_tr + n_va),
         test=split(n_tr + n_va, n),
     )
+
+
+def anomaly_testset(
+    base: TrafficDataset, kind: str = "malware", ratio: float = 0.25, seed: int = 7
+) -> dict:
+    """Benign test flows + injected attack flows at 1:4 (paper §7.4).
+
+    ``malware``: shifted Markov/byte profiles (C&C-like beaconing);
+    ``dos``: SSDP-reflection-like — near-constant large packets, tiny IPD.
+    Returns dict with the three feature views and binary ``label``
+    (1 = attack).
+    """
+    rng = np.random.default_rng(seed)
+    benign = base.test
+    n_attack = int(len(benign["label"]) * ratio)
+
+    if kind == "dos":
+        lens = np.clip(rng.normal(240, 4, (n_attack, WINDOW)), 0, 255)
+        ipds = np.clip(rng.lognormal(0.0, 0.1, (n_attack, WINDOW)), 0, 255)
+        byte_profile = np.zeros(256); byte_profile[77] = 0.7
+        byte_profile += 0.3 / 256
+        byte_profile /= byte_profile.sum()
+    else:  # malware: beaconing with unusual periodicity + rare bytes
+        lens = np.clip(rng.normal(90, 6, (n_attack, WINDOW)) + 40 * (np.arange(WINDOW) % 2), 0, 255)
+        ipds = np.clip(rng.lognormal(4.5, 0.15, (n_attack, WINDOW)), 0, 255)
+        byte_profile = rng.dirichlet(np.ones(256) * 0.01)
+
+    payload = rng.choice(256, size=(n_attack, WINDOW, N_BYTES), p=byte_profile).astype(np.uint8)
+    seq = np.stack([lens, ipds], axis=-1).astype(np.uint8)
+    stats = np.stack(
+        [
+            lens.max(1), lens.min(1), lens.mean(1), lens.std(1),
+            ipds.max(1), ipds.min(1), ipds.mean(1), ipds.std(1),
+            np.abs(np.diff(lens, axis=1)).mean(1), np.abs(np.diff(ipds, axis=1)).mean(1),
+            (lens > 128).sum(1) * 16.0, (ipds > 32).sum(1) * 16.0,
+            lens[:, 0], lens[:, -1], ipds[:, 0], ipds[:, -1],
+        ],
+        axis=1,
+    )
+    stats = np.clip(stats, 0, 255).astype(np.uint8)
+
+    out = dict(
+        stats=np.concatenate([benign["stats"], stats]),
+        seq=np.concatenate([benign["seq"], seq]),
+        bytes=np.concatenate([benign["bytes"], payload]),
+        label=np.concatenate(
+            [np.zeros(len(benign["label"]), np.int32), np.ones(n_attack, np.int32)]
+        ),
+    )
+    perm = rng.permutation(len(out["label"]))
+    return {k: v[perm] for k, v in out.items()}

@@ -1,7 +1,9 @@
 """Execution engine of the port: compiled plans over the fuzzy-LUT kernels.
 
-Exports the sequential-family plan of :mod:`repro_torch.engine.plan`; the
-plan registry comes with a later slice.
+:func:`build_plan` compiles any pegasusified model (MLP-B and AutoEncoder
+bank lists, ``PegasusRNN``, ``PegasusCNN``, ``PegasusCNNL``) into an
+:class:`ExecutionPlan`; :func:`plan_for` memoizes it in a weakref-watched,
+LRU-bounded :class:`PlanRegistry`.
 """
 
 from .plan import (
@@ -18,6 +20,7 @@ from .plan import (
     build_plan,
     fuse_banks,
 )
+from .registry import PlanRegistry, default_registry, plan_for, reset_plan_cache
 
 __all__ = [
     "BACKENDS",
@@ -28,8 +31,12 @@ __all__ = [
     "EngineStats",
     "ExecutionPlan",
     "FusedBankStack",
+    "PlanRegistry",
     "bucket_batch",
     "bucket_chunks",
     "build_plan",
+    "default_registry",
     "fuse_banks",
+    "plan_for",
+    "reset_plan_cache",
 ]

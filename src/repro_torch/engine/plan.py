@@ -1,5 +1,5 @@
 """ExecutionPlan: compile a pegasusified model once, call it many times
-(port of ``repro.engine.plan``, sequential family).
+(port of ``repro.engine.plan``).
 
   * :class:`CompiledBank` — one ``PegasusLinear`` plus every operand the
     CUDA kernels take (int32 features, thresholds, f32 LUT, int8 LUT +
@@ -13,6 +13,10 @@
     the forward eagerly on the plan's device and slices the padding off.
     ``traces`` counts first uses of a ``(backend, bucket)`` — the slot
     where a CUDA graph would be captured.
+  * :func:`build_plan` — compiles every family the nets produce: a bank
+    list (MLP-B, the AutoEncoder), the RNN's unrolled window, CNN-B/CNN-M
+    (window bank, then the pooled head chain or the NAM sum) and CNN-L
+    (two encoder banks, a fuzzy index and a logit LUT).
 
 Backends are semantics-identical up to quantization:
   ``gather``    — descent + row gather + ascending-k sum (plain PyTorch)
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.amm import PegasusLinear, apply_gather, apply_onehot
+from repro_torch.core.fuzzy_tree import hard_index
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fuzzy_lut.kernel import fuzzy_lut, fuzzy_lut_stack, stack_fits
 from repro_torch.kernels.fuzzy_lut.ops import padded_layout
@@ -119,6 +124,7 @@ class EngineStats:
     bank_calls: int = 0      # bank applications (a fused stack counts its banks)
     jit_traces: int = 0      # first uses of a (backend, bucket) per plan
     jit_calls: int = 0       # plan dispatches
+    plan_cache_hits: int = 0  # plan_for() served from the memo
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
@@ -326,6 +332,10 @@ class ExecutionPlan:
         self.fused_groups = 0
         self.fused_banks = 0
         self.fused_stacks: list = []
+        # set by build_plan: the non-bank model state the plan froze (the
+        # registry compares it with the live model) and the fusion knobs
+        self._aux_token: tuple = ()
+        self.fuse_cfg: dict | None = None
         # counters: the plan may be called from several threads
         self._lock = threading.Lock()
         self._traces = 0                                    # guarded-by: _lock
@@ -465,8 +475,20 @@ class ExecutionPlan:
                    + b.lut_q8.numel() * b.lut_q8.element_size() for b in self.banks)
 
 
+def _compile_banks(layers: Sequence[PegasusLinear], device) -> list[CompiledBank]:
+    return [CompiledBank(l, device=device) for l in layers]
+
+
+def _note_fusion(plan: ExecutionPlan, steps: Sequence) -> None:
+    for s in steps:
+        if isinstance(s, FusedBankStack):
+            plan.fused_groups += 1
+            plan.fused_banks += len(s.banks)
+            plan.fused_stacks.append(s)
+
+
 def _sequential_plan(layers, backend, buckets, fuse, nmax_cap, device) -> ExecutionPlan:
-    banks = [CompiledBank(l, device=device) for l in layers]
+    banks = _compile_banks(layers, device)
     steps = fuse_banks(banks, nmax_cap=nmax_cap) if fuse else list(banks)
 
     def forward(apply, state, x):
@@ -477,12 +499,85 @@ def _sequential_plan(layers, backend, buckets, fuse, nmax_cap, device) -> Execut
 
     plan = ExecutionPlan(banks, forward, {"steps": steps}, device=device,
                          backend=backend, family="sequential", bucket_sizes=buckets)
-    for s in steps:
-        if isinstance(s, FusedBankStack):
-            plan.fused_groups += 1
-            plan.fused_banks += len(s.banks)
-            plan.fused_stacks.append(s)
+    _note_fusion(plan, steps)
     return plan
+
+
+def _rnn_plan(model, backend, buckets, device) -> ExecutionPlan:
+    x_banks = _compile_banks(model.x_banks, device)
+    h_banks = _compile_banks(model.h_banks, device)
+    out_bank = CompiledBank(model.out_bank, device=device)
+    window = int(model.window)   # the unroll length is frozen into the plan
+
+    def forward(apply, state, x):
+        xf = x.to(torch.float32)
+        h_pre = apply(state["x"][0], xf[:, 0])
+        for t in range(1, window):
+            h_pre = apply(state["x"][t], xf[:, t]) + apply(state["h"][t - 1], h_pre)
+        return apply(state["out"], h_pre)
+
+    state = {"x": x_banks, "h": h_banks, "out": out_bank}
+    return ExecutionPlan(x_banks + h_banks + [out_bank], forward, state, device=device,
+                         backend=backend, family="rnn", bucket_sizes=buckets)
+
+
+def _cnn_plan(model, backend, buckets, fuse, nmax_cap, device) -> ExecutionPlan:
+    from repro_torch.nets.cnn import _windows  # structural helper, no cycle at call time
+
+    window_bank = CompiledBank(model.window_bank, device=device)
+    head_banks = _compile_banks(model.head_banks, device)
+    # the head chain after the window pool is an ordinary sequential run —
+    # fusable; the windowed step itself stays structural (per-window batch)
+    head_steps = fuse_banks(head_banks, nmax_cap=nmax_cap) if fuse else list(head_banks)
+    nam = bool(model.nam)        # static branch selector
+    state = {
+        "window": window_bank,
+        "heads": head_steps,
+        "out_bias": None if model.out_bias is None else torch.as_tensor(
+            model.out_bias, dtype=torch.float32, device=device),
+    }
+
+    def forward(apply, state, x):
+        win = _windows(x.to(torch.float32))           # [B, P, KERNEL*f]
+        b, pcount, wdim = win.shape
+        contrib = apply(state["window"], win.reshape(-1, wdim)).reshape(b, pcount, -1)
+        if nam:
+            return contrib.sum(dim=1) + state["out_bias"]  # single SumReduce
+        h = contrib.mean(dim=1)                        # rows already ReLU'd
+        for step in state["heads"]:
+            h = apply(step, h)
+        return h
+
+    plan = ExecutionPlan([window_bank] + head_banks, forward, state, device=device,
+                         backend=backend, family="cnn", bucket_sizes=buckets)
+    _note_fusion(plan, head_steps)
+    return plan
+
+
+def _cnn_l_plan(model, backend, buckets, device) -> ExecutionPlan:
+    from repro_torch.nets.cnn import _packet_feats
+
+    bank1 = CompiledBank(model.bank1, device=device)
+    bank2 = CompiledBank(model.bank2, device=device)
+    state = {
+        "b1": bank1,
+        "b2": bank2,
+        "emb_tree": model.emb_tree.to(device),
+        "logit_lut": torch.as_tensor(model.logit_lut, dtype=torch.float32, device=device),
+        "bias": torch.as_tensor(model.bias, dtype=torch.float32, device=device),
+    }
+
+    def forward(apply, state, seq, payload):
+        x = _packet_feats(seq, payload) * 255.0       # [B, W, 62]
+        b, w, d = x.shape
+        h_pre = apply(state["b1"], x.reshape(-1, d))
+        emb = torch.tanh(apply(state["b2"], h_pre))
+        idx = hard_index(state["emb_tree"], emb)
+        contrib = state["logit_lut"][idx].reshape(b, w, -1)
+        return contrib.sum(dim=1) + state["bias"]
+
+    return ExecutionPlan([bank1, bank2], forward, state, device=device, backend=backend,
+                         family="cnn_l", bucket_sizes=buckets)
 
 
 def build_plan(
@@ -494,14 +589,23 @@ def build_plan(
     fuse_nmax_cap: int | None = DEFAULT_FUSE_NMAX_CAP,
     device: str | torch.device = "cuda",
 ) -> ExecutionPlan:
-    """Compile a pegasusified model into an ExecutionPlan on ``device``.
+    """Compile any pegasusified model into an ExecutionPlan on ``device``.
 
-    ``model`` is a ``PegasusLinear`` or a list of them (a sequential stack:
-    MLP-B). The other families (RNN, CNN, CNN-L) come with a later slice of
-    the port and raise ``TypeError``. ``backend`` is the default of
-    ``plan(x)`` calls; ``fuse=False`` disables cross-bank fusion;
-    ``fuse_nmax_cap`` bounds a fused group's padded output width. The plan
-    freezes the banks at build; it runs on the GPU unless ``device="cpu"``.
+    Dispatch is structural (no imports of the net modules at module scope):
+      * ``PegasusLinear`` or a list/tuple of them → sequential stack (MLP-B,
+        the AutoEncoder's ``AEBanks``)
+      * ``.x_banks``/``.h_banks``    → ``PegasusRNN``
+      * ``.emb_tree``/``.logit_lut`` → ``PegasusCNNL`` (two-level NAM)
+      * ``.window_bank``             → ``PegasusCNN`` (B and M/NAM)
+    Anything else raises ``TypeError`` at build time.
+
+    ``backend`` is the default of ``plan(x)`` calls; ``fuse=False``
+    disables cross-bank fusion; ``fuse_nmax_cap`` bounds a fused group's
+    padded output width. The plan freezes all model state at build, banks
+    and non-bank attributes alike (RNN window, CNN nam/out_bias, CNN-L
+    emb_tree/logit_lut/bias): rebuild it after mutating the model, or go
+    through ``plan_for``, which notices and recompiles. The plan runs on
+    the GPU unless ``device="cpu"``.
     """
     dev = resolve_device(device)
     # the onehot backend is an fp32 matmul: TF32 would cost it fp32 parity
@@ -509,11 +613,73 @@ def build_plan(
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("could not switch TF32 matmuls off")
     if isinstance(model, PegasusLinear):
-        model = [model]
-    if not (isinstance(model, (list, tuple))
-            and all(isinstance(l, PegasusLinear) for l in model)):
-        raise TypeError(
-            f"cannot compile {type(model).__name__}: this slice of the port "
-            "compiles PegasusLinear bank lists (MLP-B); the RNN, CNN and "
-            "CNN-L plans come with a later slice")
-    return _sequential_plan(model, backend, bucket_sizes, fuse, fuse_nmax_cap, dev)
+        plan = _sequential_plan([model], backend, bucket_sizes, fuse, fuse_nmax_cap, dev)
+    elif isinstance(model, (list, tuple)):
+        if not all(isinstance(l, PegasusLinear) for l in model):
+            raise TypeError("bank list must contain only PegasusLinear")
+        plan = _sequential_plan(model, backend, bucket_sizes, fuse, fuse_nmax_cap, dev)
+    elif hasattr(model, "x_banks") and hasattr(model, "h_banks"):
+        plan = _rnn_plan(model, backend, bucket_sizes, dev)
+    elif hasattr(model, "emb_tree") and hasattr(model, "logit_lut"):
+        plan = _cnn_l_plan(model, backend, bucket_sizes, dev)
+    elif hasattr(model, "window_bank"):
+        plan = _cnn_plan(model, backend, bucket_sizes, fuse, fuse_nmax_cap, dev)
+    else:
+        raise TypeError(f"don't know how to compile {type(model).__name__} into a plan")
+    plan._aux_token = _model_aux(model)
+    plan.fuse_cfg = {"fuse": fuse, "nmax_cap": fuse_nmax_cap}
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Model-structure helpers shared with the registry (repro_torch.engine.registry),
+# which owns all plan memoization: weakref-watched, bounded, evictable.
+# ---------------------------------------------------------------------------
+
+
+def _model_key(model: Any, kw: dict) -> tuple:
+    if isinstance(model, (list, tuple)):
+        ids: tuple = tuple(id(l) for l in model)
+    else:
+        ids = (id(model),)
+    return (*ids, tuple(sorted(kw.items())))
+
+
+def _model_aux(model: Any) -> tuple:
+    """Non-bank model state a compiled plan froze at build time (window
+    length, NAM flag, out-bias, embedding tree, logit LUT). The registry
+    must rebuild when any of it is reassigned: a stale memo hit would serve
+    outputs from the pre-mutation tensors."""
+    if hasattr(model, "x_banks") and hasattr(model, "h_banks"):
+        return (int(model.window),)
+    if hasattr(model, "emb_tree") and hasattr(model, "logit_lut"):
+        return (model.emb_tree, model.logit_lut, model.bias)
+    if hasattr(model, "window_bank"):
+        return (bool(model.nam), model.out_bias)
+    return ()
+
+
+def _aux_matches(a: tuple, b: tuple) -> bool:
+    """Identity for tensor-like entries (``==`` on tensors is elementwise),
+    equality for plain scalars."""
+    return len(a) == len(b) and all(
+        x is y or (isinstance(x, (bool, int)) and isinstance(y, (bool, int))
+                   and x == y)
+        for x, y in zip(a, b))
+
+
+def _model_banks(model: Any) -> tuple:
+    """Current bank layers of a model, in plan construction order — used to
+    detect in-place mutation (``peg.window_bank = ...``) that would
+    otherwise hit the memo with a stale compiled plan."""
+    if isinstance(model, PegasusLinear):
+        return (model,)
+    if isinstance(model, (list, tuple)):
+        return tuple(model)
+    if hasattr(model, "x_banks") and hasattr(model, "h_banks"):
+        return (*model.x_banks, *model.h_banks, model.out_bank)
+    if hasattr(model, "emb_tree") and hasattr(model, "logit_lut"):
+        return (model.bank1, model.bank2)
+    if hasattr(model, "window_bank"):
+        return (model.window_bank, *model.head_banks)
+    return ()

@@ -15,9 +15,15 @@ from repro_torch.core.amm import PegasusLinear
 from repro_torch.core.fuzzy_tree import FuzzyTree
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fuzzy_lut.ops import check_features
+from repro_torch.nets.autoencoder import AEBanks, AutoEncoder
+from repro_torch.nets.cnn import CNNL, CNNModel, PegasusCNN, PegasusCNNL
 from repro_torch.nets.mlp import MLPB
+from repro_torch.nets.rnn import RNNB, PegasusRNN
 
-__all__ = ["pegasus_linear_from_arrays", "banks_from_arrays", "mlp_from_arrays"]
+__all__ = ["pegasus_linear_from_arrays", "banks_from_arrays", "mlp_from_arrays",
+           "rnn_from_arrays", "cnn_from_arrays", "cnn_l_from_arrays",
+           "ae_banks_from_arrays", "rnn_teacher_from_arrays", "cnn_teacher_from_arrays",
+           "cnn_l_teacher_from_arrays", "ae_from_arrays"]
 
 
 def _t(a, dtype, dev) -> torch.Tensor:
@@ -52,10 +58,90 @@ def banks_from_arrays(banks: list[dict],
     return [pegasus_linear_from_arrays(**b, device=device) for b in banks]
 
 
+def _params(params: dict, dev) -> dict:
+    return {k: _t(v, np.float32, dev) for k, v in params.items()}
+
+
 def mlp_from_arrays(params: dict, mu, sigma, num_classes: int,
                     device: str | torch.device = "cuda") -> MLPB:
     """An MLP-B teacher from its parameter arrays and normalization."""
     dev = resolve_device(device)
-    return MLPB(params={k: _t(v, np.float32, dev) for k, v in params.items()},
-                mu=_t(mu, np.float32, dev), sigma=_t(sigma, np.float32, dev),
-                num_classes=int(num_classes))
+    return MLPB(params=_params(params, dev), mu=_t(mu, np.float32, dev),
+                sigma=_t(sigma, np.float32, dev), num_classes=int(num_classes))
+
+
+# ---------------------------------------------------------------------------
+# The other families: bank containers (each bank a dict as for
+# pegasus_linear_from_arrays) and teachers (parameter dicts)
+# ---------------------------------------------------------------------------
+
+
+def rnn_from_arrays(x_banks: list[dict], h_banks: list[dict], out_bank: dict,
+                    window: int, device: str | torch.device = "cuda") -> PegasusRNN:
+    """A pegasusified RNN-B: one x-bank per step, one h-bank per step after
+    the first, the classifier bank."""
+    return PegasusRNN(x_banks=banks_from_arrays(x_banks, device),
+                      h_banks=banks_from_arrays(h_banks, device),
+                      out_bank=pegasus_linear_from_arrays(**out_bank, device=device),
+                      window=int(window))
+
+
+def cnn_from_arrays(window_bank: dict, head_banks: list[dict], out_bias, nam: bool,
+                    pool_windows: int, device: str | torch.device = "cuda") -> PegasusCNN:
+    """A pegasusified CNN-B (head banks, no ``out_bias``) or CNN-M (NAM: no
+    head banks, an ``out_bias``)."""
+    dev = resolve_device(device)
+    return PegasusCNN(window_bank=pegasus_linear_from_arrays(**window_bank, device=dev),
+                      head_banks=banks_from_arrays(head_banks, dev),
+                      out_bias=None if out_bias is None else _t(out_bias, np.float32, dev),
+                      nam=bool(nam), pool_windows=int(pool_windows))
+
+
+def cnn_l_from_arrays(bank1: dict, bank2: dict, emb_tree: dict, logit_lut, bias,
+                      index_bits: int, device: str | torch.device = "cuda") -> PegasusCNNL:
+    """A pegasusified CNN-L; ``emb_tree`` holds the ``features``,
+    ``thresholds`` and ``centroids`` of the embedding's fuzzy tree."""
+    dev = resolve_device(device)
+    tree = FuzzyTree(features=_t(emb_tree["features"], np.int32, dev),
+                     thresholds=_t(emb_tree["thresholds"], np.float32, dev),
+                     centroids=_t(emb_tree["centroids"], np.float32, dev))
+    check_features(tree.features, tree.group_dim)
+    return PegasusCNNL(bank1=pegasus_linear_from_arrays(**bank1, device=dev),
+                       bank2=pegasus_linear_from_arrays(**bank2, device=dev),
+                       emb_tree=tree, logit_lut=_t(logit_lut, np.float32, dev),
+                       bias=_t(bias, np.float32, dev), index_bits=int(index_bits))
+
+
+def ae_banks_from_arrays(banks: list[dict], feat_mu, feat_sigma,
+                         device: str | torch.device = "cuda") -> AEBanks:
+    """The AutoEncoder's bank list with its benign standardization."""
+    return AEBanks(banks_from_arrays(banks, device), feat_mu, feat_sigma)
+
+
+def rnn_teacher_from_arrays(params: dict, num_classes: int, window: int,
+                            device: str | torch.device = "cuda") -> RNNB:
+    return RNNB(params=_params(params, resolve_device(device)),
+                num_classes=int(num_classes), window=int(window))
+
+
+def cnn_teacher_from_arrays(params: dict, num_classes: int, size: str,
+                            device: str | torch.device = "cuda") -> CNNModel:
+    """A CNN-B or CNN-M teacher; its widths come from the parameter shapes."""
+    p = _params(params, resolve_device(device))
+    return CNNModel(params=p, num_classes=int(num_classes), channels=p["w_conv"].shape[1],
+                    hidden=p["w_h"].shape[1], size=size)
+
+
+def cnn_l_teacher_from_arrays(params: dict, num_classes: int,
+                              device: str | torch.device = "cuda") -> CNNL:
+    p = _params(params, resolve_device(device))
+    return CNNL(params=p, num_classes=int(num_classes), emb_dim=p["w_e2"].shape[1])
+
+
+def ae_from_arrays(params: dict, feat_mu, feat_sigma,
+                   device: str | torch.device = "cuda") -> AutoEncoder:
+    """An AutoEncoder teacher with its benign feature mean and std."""
+    p = _params(params, resolve_device(device))
+    return AutoEncoder(params=p, in_dim=p["w_e1"].shape[0],
+                       feat_mu=np.asarray(feat_mu, np.float32),
+                       feat_sigma=np.asarray(feat_sigma, np.float32))

@@ -15,10 +15,12 @@ import torch
 
 from repro_torch.core.amm import PegasusLinear, init_pegasus_linear
 from repro_torch.device import resolve_device
+from repro_torch.engine import plan_for
 
 from .common import train_classifier
 
-__all__ = ["MLPB", "init_mlp", "mlp_apply", "train_mlp", "pegasusify_mlp"]
+__all__ = ["MLPB", "init_mlp", "mlp_apply", "train_mlp", "pegasusify_mlp",
+           "pegasus_mlp_apply"]
 
 HIDDEN = 32
 
@@ -151,3 +153,10 @@ def pegasusify_mlp(
     layers.append(bank(np_p["w_out"], np_p["b_out"], acts[3],
                        lambda c: torch.clamp(c, min=0.0)))
     return layers
+
+
+def pegasus_mlp_apply(layers: list[PegasusLinear], x, *, backend: str = "gather",
+                      device: str | torch.device = "cuda") -> torch.Tensor:
+    """Run the fused bank stack via the execution engine (hard routing,
+    deployment semantics)."""
+    return plan_for(layers, device=device)(x, backend=backend)

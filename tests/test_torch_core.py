@@ -211,22 +211,29 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n.startswith('jaxlib') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for n in ('engine.registry', 'nets.rnn', 'nets.cnn', 'nets.autoencoder'):\n"
+        "    assert 'repro_torch.' + n in sys.modules, n\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 24
 
 
 def test_no_silent_cpu():
     """Entry points default to the GPU and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from repro_torch.engine import build_plan
+    from repro_torch.engine import build_plan, plan_for
+    from repro_torch.nets import autoencoder, cnn, rnn
 
     layer = amm.init_pegasus_linear(*_dense_layer(1), group_size=3, depth=2, device="cpu")
     for call in (lambda: resolve_device(), lambda: resolve_device(None),
-                 lambda: build_plan([layer]), lambda: mlp.init_mlp(16, 3),
+                 lambda: build_plan([layer]), lambda: plan_for([layer]),
+                 lambda: mlp.init_mlp(16, 3), lambda: rnn.init_rnn(3),
+                 lambda: cnn.init_cnn(3, 16, 24), lambda: cnn.init_cnn_l(3),
+                 lambda: autoencoder.init_ae(24),
+                 lambda: mlp.pegasus_mlp_apply([layer], np.zeros((2, 3), np.float32)),
                  lambda: amm.init_pegasus_linear(*_dense_layer(1), group_size=3, depth=2),
                  lambda: interop.pegasus_linear_from_arrays(
                      layer.trees.features.numpy(), layer.trees.thresholds.numpy(),

@@ -215,3 +215,82 @@ def test_f32_stack_kernel_reads_trees_through_l1(dev):
     wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lt, b, geom["ks"], 77)
     assert torch.equal(lv.long(), wl)
     assert torch.equal(y, wy)
+
+
+# t, k, v, depth, n of every lone bank the other families launch, at the
+# rows one bucket-4096 batch gives it: the RNN's x, h and out banks; the
+# CNN-B and CNN-M window banks (depth 12, v=6, 6 windows per flow); the
+# CNN-L encoder banks (K = 62 and 64, wider than a warp; 8 packets per flow)
+FAMILY_BANKS = {"rnn-x": (4096, 2, 1, 8, 24), "rnn-h": (4096, 24, 1, 8, 24),
+                "rnn-out": (4096, 24, 1, 8, 3), "cnn-b-window": (24576, 1, 6, 12, 16),
+                "cnn-m-window": (24576, 1, 6, 12, 3), "cnn-l-b1": (32768, 62, 1, 8, 64),
+                "cnn-l-b2": (32768, 64, 1, 8, 16)}
+# the CNN-B head pair and the AE's four-layer stack (trees through L1)
+FAMILY_STACKS = {"cnn-b-heads": dict(t=4096, ks=(16, 24), v=1, depth=8, nmax=24, n_out=3),
+                 "ae": dict(t=4096, ks=(24, 12, 3, 12), v=1, depth=8, nmax=24, n_out=24)}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_BANKS))
+def test_family_bank_kernels_bit_equal(dev, name):
+    """Both per-bank kernels at a family's geometry: leaves exact, outputs
+    bit-equal to the plain versions."""
+    x, f, th, lut = _bank(np.random.default_rng(len(name)), *FAMILY_BANKS[name], dev)
+    q, s = Q.quantize_lut_int8(lut)
+    for run, plain in ((lambda: K.fuzzy_lut(x, f, th, lut, return_leaves=True),
+                        lambda: K.fuzzy_lut_plain(x, f, th, lut)),
+                       (lambda: Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True),
+                        lambda: Q.fuzzy_lut_q8_plain(x, f, th, q, s))):
+        y, lv = run()
+        torch.cuda.synchronize()
+        wy, wl = plain()
+        assert torch.equal(lv.long(), wl), name
+        assert torch.equal(y, wy), name
+
+
+@pytest.mark.parametrize("name", sorted(FAMILY_STACKS))
+def test_family_stack_kernels_bit_equal(dev, name):
+    geom = FAMILY_STACKS[name]
+    ks, n_out = geom["ks"], geom["n_out"]
+    x, f, th, lt, b = _stack(np.random.default_rng(len(name)), dev=dev, **geom)
+    nl, kmax, c, nmax = lt.shape
+    q, s = Q.quantize_lut_int8(lt.reshape(nl * kmax, c, nmax))
+    q, s = q.reshape(lt.shape).contiguous(), s.reshape(nl, kmax).contiguous()
+    y, lv = K.fuzzy_lut_stack(x, f, th, lt, b, ks=ks, n_out=n_out, return_leaves=True)
+    wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lt, b, ks, n_out)
+    assert torch.equal(lv.long(), wl) and torch.equal(y, wy), name
+    y, lv = Q.fuzzy_lut_stack_q8(x, f, th, q, s, b, ks=ks, n_out=n_out, return_leaves=True)
+    wy, wl = Q.fuzzy_lut_stack_q8_plain(x, f, th, q, s, b, ks, n_out)
+    assert torch.equal(lv.long(), wl) and torch.equal(y, wy), name
+
+
+@pytest.mark.parametrize("family", ["rnn", "cnn_l"])
+def test_family_served_kernel_equals_gather(dev, family):
+    """An RNN and a CNN-L, trained a few steps on the card and pegasusified
+    at their published widths, served through PegasusServer: ``kernel``
+    equals ``gather`` bit for bit and each backend launched only its own
+    per-bank kernel, as often as the family's batches need."""
+    from repro_torch.data.synthetic_traffic import make_dataset
+    from repro_torch.launch.serve import InferRequest, PegasusServer
+    from repro_torch.nets import cnn, rnn
+
+    ds = make_dataset("peerrush", flows_per_class=100)
+    tr, te = ds.train, ds.test
+    if family == "rnn":
+        m = rnn.train_rnn(tr["seq"], tr["label"], 3, steps=30, device=dev)
+        model, inputs, per_batch = rnn.pegasusify_rnn(m, tr["seq"], depth=8), (te["seq"],), 16
+    else:
+        m = cnn.train_cnn_l(tr["seq"], tr["bytes"], tr["label"], 3, steps=30, device=dev)
+        model = cnn.pegasusify_cnn_l(m, tr["seq"], tr["bytes"], enc_depth=8, index_bits=8)
+        inputs, per_batch = (te["seq"], te["bytes"]), 2
+    reqs = [InferRequest(family, tuple(a[i : i + 7] for a in inputs) if len(inputs) > 1
+                         else inputs[0][i : i + 7]) for i in range(0, len(inputs[0]), 7)]
+    outs = {}
+    for be, name in (("gather", None), ("kernel", "fuzzy_lut"), ("kernel_q8", "fuzzy_lut_q8")):
+        server = PegasusServer(model, backend=be, device=dev)
+        _lib.reset_launches()
+        outs[be] = np.concatenate([r.output for r in server.serve(reqs)])
+        torch.cuda.synchronize()
+        want = {} if name is None else {name: per_batch * server.batches_run}
+        assert {k: n for k, n in _lib.LAUNCHES.items() if n} == want, be
+        assert np.isfinite(outs[be]).all() and outs[be].shape == (len(inputs[0]), 3)
+    assert np.array_equal(outs["kernel"], outs["gather"])
