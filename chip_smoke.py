@@ -33,8 +33,20 @@ Phases (any failure exits nonzero; none is caught and passed over):
      the reference's limits, the launch counts per served run exactly those
      of the family's kernels; served macro-F1 beside the teacher's (the AE:
      whole-net error and anomaly AUC); a ``torch.profiler`` window over the
-     RNN's ``kernel`` run;
-  6. a ``{"kernels": [...]}`` line, then the device line as the last line.
+     RNN's ``kernel`` run under its graphs and one run eagerly;
+  6. many models at once: every served path of phases 4-5 on ``kernel`` and
+     ``kernel_q8`` served through its CUDA graphs and eagerly
+     (``jit=False``), in turns, outputs bit-equal; a ``MultiModelServer``
+     on each kernel backend holding all six models (MLP-B at priority
+     weight 4) drains their interleaved traffic, each model's outputs
+     bit-equal to its own ``PegasusServer``'s, no drain error, no fallback,
+     the launch counts exactly those of the models' batches; an
+     ``AsyncMultiModelServer(devices=1)`` (one stream-pool worker on its
+     own CUDA stream) serves the same traffic through futures; three
+     injected plan-call failures of the RNN open its breaker, it serves
+     degraded on ``gather`` (bit-equal to ``kernel``) and a probe closes
+     the breaker again;
+  7. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -461,7 +473,8 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
     with torch.no_grad():
         teacher = mlp_apply(mlp, torch.as_tensor(x, device=device)).argmax(-1).cpu().numpy()
     res = dict(teacher_f1=macro_f1(teacher, y, ds.num_classes), runs={},
-               requests=len(requests), flows=n_serve, train_s=train_s)
+               requests=len(requests), flows=n_serve, train_s=train_s,
+               model=banks, request_list=requests)
 
     launches = dict.fromkeys(_lib.LAUNCHES, 0)
     for backend, fuse in (("gather", True), ("kernel", True), ("kernel_q8", True),
@@ -618,7 +631,8 @@ def family_path(name, ds, device, *, steps: int, tiny: bool = False,
     build_s = time.perf_counter() - t0
     requests, tiled = _requests(name, inputs, n_serve)
     y = np.tile(ds.test["label"], -(-n_serve // len(ds.test["label"])))[:n_serve]
-    res = dict(build_s=build_s, runs={}, requests=len(requests))
+    res = dict(build_s=build_s, runs={}, requests=len(requests), model=model,
+               request_list=requests)
     if name != "ae":
         with torch.no_grad():
             logits = teacher(*(torch.as_tensor(a, device=device) for a in tiled))
@@ -683,6 +697,7 @@ def family_path(name, ds, device, *, steps: int, tiny: bool = False,
                              f"(< {Q8_BANK_REL}), agreement {q8['agree']} (>= {Q8_AGREE})")
     if device.type == "cuda" and name == "rnn":
         res["profile"] = profile_window(kern["server"], requests)
+        res["profile_eager"] = profile_window(kern["server"], requests, jit=False)
     return res
 
 
@@ -714,18 +729,281 @@ def families_phase(device, *, flows_per_class: int = 1500, steps: int | None = N
     return out
 
 
-def profile_window(server, requests) -> dict | None:
-    """``torch.profiler`` over one served run of ``server``: device time by
-    kernel name and the device's idle share over the window (the span from
-    the first to the last event, host or device). None when the trace holds
-    no device time."""
+# ---------------------------------------------------------------------------
+# Phase 6: many models behind one server, through the graphs
+# ---------------------------------------------------------------------------
+
+# the six served models of phases 4-5, by the name they are registered under
+MODELS = ("mlp", "rnn", "cnn_b", "cnn_m", "cnn_l", "ae")
+# launches one served batch makes on ``kernel`` (MLP-B fused: one stack)
+PER_BATCH = {"mlp": {"fuzzy_lut_stack": 1},
+             **{name: cfg["per_batch"] for name, cfg in FAMILIES.items()}}
+
+
+def _served(res, fams, name, backend):
+    """(model, request list renamed to ``name``, served output) of one model
+    on ``backend`` from phases 4-5."""
+    import dataclasses
+
+    src = res if name == "mlp" else fams[name]
+    run = src["runs"][(backend, True) if name == "mlp" else backend]
+    reqs = [dataclasses.replace(r, model=name) for r in src["request_list"]]
+    return src["model"], reqs, run
+
+
+def _interleaved(lists: dict) -> list:
+    """Round-robin across the models' request lists."""
+    out, i = [], 0
+    while any(i < len(v) for v in lists.values()):
+        out += [v[i] for v in lists.values() if i < len(v)]
+        i += 1
+    return out
+
+
+def _timed_serve(server, requests, device, **kw):
+    _sync(device)
+    t0 = time.perf_counter()
+    results = server.serve(requests, **kw)
+    _sync(device)
+    return results, time.perf_counter() - t0
+
+
+def graph_vs_eager(res, fams, device) -> dict:
+    """Every served path of phases 4-5 on kernel and kernel_q8 (their
+    graphs already captured), served once more through the graphs and once
+    with ``jit=False``, in turns eager, graph, graph, eager: outputs
+    bit-equal, flows/s of each."""
+    import numpy as np
+
+    paths = [("mlp", fuse) for fuse in (True, False)] + [(n, None) for n in FAMILIES]
+    out = {}
+    for name, fuse in paths:
+        for backend in ("kernel", "kernel_q8"):
+            src = res if name == "mlp" else fams[name]
+            run = src["runs"][(backend, fuse) if name == "mlp" else backend]
+            server, reqs = run["server"], src["request_list"]
+            flows = sum(r.flows for r in reqs)
+            e1, te1 = _timed_serve(server, reqs, device, jit=False)
+            g1, tg1 = _timed_serve(server, reqs, device)
+            g2, tg2 = _timed_serve(server, reqs, device)
+            e2, te2 = _timed_serve(server, reqs, device, jit=False)
+            outs = [np.concatenate([r.output for r in rs]) for rs in (e1, g1, g2, e2)]
+            if not all(np.array_equal(o, run["out"]) for o in outs):
+                err = max(float(np.abs(o - run["out"]).max()) for o in outs)
+                raise AssertionError(f"{name} fuse={fuse} {backend}: graph and eager outputs "
+                                     f"differ (max |diff| {err})")
+            tag = name if fuse is None else f"mlp fuse={fuse}"
+            out[(tag, backend)] = dict(eager=2 * flows / (te1 + te2),
+                                       graph=2 * flows / (tg1 + tg2))
+    return out
+
+
+def multi_model(res, fams, device, backend: str, smi: str):
+    """``MultiModelServer`` on ``backend`` holding the six models (mlp at
+    priority weight 4): the interleaved traffic drained twice (the first
+    captures the new plans' graphs); each model's outputs bit-equal to its
+    own ``PegasusServer`` output, flows counted per model, every model in
+    the schedule, no drain error and no fallback, the launch counts of the
+    timed drain exactly those of the models' batches."""
+    import numpy as np
+
+    from repro_torch.kernels.fuzzy_lut import _lib
+    from repro_torch.launch.serve import MultiModelServer
+
+    server = MultiModelServer(backend=backend, device=device)
+    lists, want = {}, {}
+    for name in MODELS:
+        model, reqs, run = _served(res, fams, name, backend)
+        server.add_model(name, model, priority="high" if name == "mlp" else None)
+        lists[name], want[name] = reqs, run["out"]
+    traffic = _interleaved(lists)
+    flows = sum(r.flows for r in traffic)
+    for attempt in ("warm-up", "timed"):
+        for req in traffic:
+            server.submit(req)
+        before = server.stats()["serving"]["models"]
+        _sync(device)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        out = server.drain()
+        _sync(device)
+        dt = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+        _check_drain(server, f"MultiModelServer {backend} {attempt}")
+        st = server.stats()["serving"]["models"]
+        for name in MODELS:
+            got = np.concatenate(out[name])
+            if not np.array_equal(got, want[name]):
+                raise AssertionError(f"MultiModelServer {backend}: {name} differs from its "
+                                     f"PegasusServer output (max |diff| "
+                                     f"{float(np.abs(got - want[name]).max())})")
+            served = st[name]["flows_served"] - before[name]["flows_served"]
+            if served != sum(r.flows for r in lists[name]):
+                raise AssertionError(f"MultiModelServer {backend}: {name} served {served} flows")
+        if set(server.schedule_log) != set(MODELS):
+            raise AssertionError(f"schedule_log holds {sorted(set(server.schedule_log))}")
+    if device.type == "cuda":
+        expect: dict = {}
+        for name in MODELS:
+            batches = st[name]["batches_run"] - before[name]["batches_run"]
+            for k, n in PER_BATCH[name].items():
+                k = k if backend == "kernel" else Q8_NAME[k]
+                expect[k] = expect.get(k, 0) + n * batches
+        if {k: n for k, n in launches.items() if n} != expect:
+            raise AssertionError(f"MultiModelServer {backend}: launches {launches}; "
+                                 f"expected {expect}")
+    log(f"  MultiModelServer {backend}: {len(traffic)} requests of six models "
+        f"({flows} flows) in {server.batches_dispatched // 2} batches per drain: "
+        f"{flows / dt:.1f} flows/s aggregate, launches {({k: n for k, n in launches.items() if n})}"
+        f" on {smi}")
+    return server, dict(flows_per_s=flows / dt, launches=launches, out=out,
+                        traffic=traffic, want=want)
+
+
+def _check_drain(server, what: str) -> None:
+    """No drain error and no degraded batch outside an injected fault."""
+    health = server.stats()["health"]["models"]
+    fallback = {n: h["fallback_batches"] for n, h in health.items() if h["fallback_batches"]}
+    if server.last_drain_errors or fallback:
+        raise AssertionError(f"{what}: drain errors {server.last_drain_errors}, "
+                             f"fallback batches {fallback}")
+
+
+def async_server(mm, device, backend: str, smi: str) -> float:
+    """``AsyncMultiModelServer(devices=1)``: one stream-pool worker on its own
+    CUDA stream serves the same traffic through ``submit`` futures, twice
+    (the first pass captures the worker stream's graphs); the second pass
+    ends in ``stop(drain=True)``. Every output equals the sync drain's.
+    Returns the second pass's flows/s."""
+    import numpy as np
+
+    from repro_torch.launch.serve import AsyncMultiModelServer
+
+    srv = AsyncMultiModelServer(backend=backend, device=device,
+                                devices=1 if device.type == "cuda" else [device])
+    try:
+        for name in MODELS:
+            srv.add_model(name, mm["server"].registry.model(name),
+                          priority="high" if name == "mlp" else None)
+        srv.start()
+        for attempt in ("warm-up", "timed"):
+            t0 = time.perf_counter()
+            futs = [(r.model, srv.submit(r)) for r in mm["traffic"]]
+            if attempt == "timed":
+                srv.stop(drain=True, timeout=300)
+            got: dict = {}
+            for name, f in futs:
+                got.setdefault(name, []).append(f.result(timeout=300).output)
+            dt = time.perf_counter() - t0
+            _check_drain(srv, f"AsyncMultiModelServer {backend} {attempt}")
+            for name in MODELS:
+                if not np.array_equal(np.concatenate(got[name]),
+                                      np.concatenate(mm["out"][name])):
+                    raise AssertionError(f"AsyncMultiModelServer {backend}: {name} differs "
+                                         "from the sync drain")
+        if srv.running or srv.loop_errors:
+            raise AssertionError(f"AsyncMultiModelServer: running {srv.running}, loop "
+                                 f"errors {list(srv.loop_errors)}")
+        pool = srv.stats()["devices"]
+    finally:
+        srv.close()
+    flows = sum(r.flows for r in mm["traffic"])
+    log(f"  AsyncMultiModelServer(devices=1) {backend}: outputs equal to the sync drain; "
+        f"{flows / dt:.1f} flows/s through futures (second pass, ending in "
+        f"stop(drain=True)); pool {[(d['device'], d['dispatched_chunks']) for d in pool['per_device']]}"
+        f" on {smi}")
+    return flows / dt
+
+
+def injected_fault(mm, device) -> dict:
+    """Three injected ``plan_call`` failures of rnn on the kernel server: the
+    breaker opens, rnn serves degraded on gather (equal to kernel bit for
+    bit), and after the cooldown a probe closes the breaker again."""
+    import numpy as np
+
+    from repro_torch.launch.chaos import FaultInjector
+
+    server = mm["server"]
+    rnn_reqs = [r for r in mm["traffic"] if r.model == "rnn"]
+    one_mlp = next(r for r in mm["traffic"] if r.model == "mlp")
+    want = np.concatenate(mm["out"]["rnn"])
+    inj = FaultInjector(seed=0)
+    inj.inject("plan_call", model="rnn", count=3)
+    server.install_chaos(inj)
+    try:
+        for r in rnn_reqs:
+            server.submit(r)
+        states = []
+        for _ in range(3):               # each drain's first rnn slice fails
+            server.submit(one_mlp)
+            server.drain()
+            states.append(server.stats()["health"]["models"]["rnn"]["state"])
+        if states != ["closed", "closed", "open"]:
+            raise AssertionError(f"breaker states after 1-3 failures: {states}")
+        degraded = server.drain()["rnn"]          # the whole queue, on gather
+        if not np.array_equal(np.concatenate(degraded), want):
+            raise AssertionError("degraded gather batches differ from the kernel output")
+        time.sleep(server.breaker_reset_s + 0.05)
+        for r in rnn_reqs:
+            server.submit(r)
+        probed = server.drain()["rnn"]
+        if server.last_drain_errors or not np.array_equal(np.concatenate(probed), want):
+            raise AssertionError(f"probe drain: errors {server.last_drain_errors}")
+        health = server.stats()["health"]["models"]["rnn"]
+    finally:
+        server.uninstall_chaos()
+    if (health["state"] != "closed" or health["opened"] != 1 or health["reinstated"] != 1
+            or not health["fallback_batches"] or inj.stats()["fired"] != 3):
+        raise AssertionError(f"breaker did not open and close once: {health}")
+    log(f"  injected fault (3 x plan_call on rnn): breaker {states} -> degraded "
+        f"{health['fallback_batches']} gather batches (bit-equal to kernel) -> probe "
+        f"{health['probe_batches']} -> {health['state']}; health {health}")
+    return health
+
+
+def multi_model_phase(res, fams, device, smi: str) -> dict:
+    """Phase 6: graph against eager, ``MultiModelServer`` on kernel and
+    kernel_q8, ``AsyncMultiModelServer(devices=1)``, one injected fault."""
+    import torch
+
+    log("  graph against eager (flows/s, in turns eager, graph, graph, eager):")
+    speed = graph_vs_eager(res, fams, device)
+    for (tag, backend), r in speed.items():
+        log(f"    {tag:13s} {backend:9s} eager {r['eager']:.1f}, graph {r['graph']:.1f} "
+            f"flows/s (graph/eager {r['graph'] / r['eager']:.3f}) on {smi}")
+    out = dict(speed=speed, launches={})
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for backend in ("kernel", "kernel_q8"):
+        server, mm = multi_model(res, fams, device, backend, smi)
+        mm["server"] = server
+        out[backend] = mm
+        for k, n in mm["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    if device.type == "cuda":
+        log(f"  card memory after the multi-model servers: allocated "
+            f"{torch.cuda.memory_allocated()} B, peak {torch.cuda.max_memory_allocated()} B "
+            f"on {smi}")
+        missing = [k for k, n in out["launches"].items() if not n]
+        if missing:
+            raise AssertionError(f"phase 6 launched no {missing}")
+    out["async_flows_per_s"] = async_server(out["kernel"], device, "kernel", smi)
+    out["health"] = injected_fault(out["kernel"], device)
+    return out
+
+
+def profile_window(server, requests, **kw) -> dict | None:
+    """``torch.profiler`` over one served run of ``server`` (``kw`` goes to
+    ``serve``): device time by kernel name and the device's idle share over
+    the window (the span from the first to the last event, host or device).
+    None when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.serve(requests)
+        server.serve(requests, **kw)
         torch.cuda.synchronize()
     events = list(prof.events())
     dev = [e for e in events if e.device_type == DeviceType.CUDA
@@ -776,7 +1054,8 @@ def main(argv=None) -> int:
         check_kernels(device, t=64, time_it=False)
         res = main_path(device, flows_per_class=48, steps=5, depth=3, n_serve=300)
         check_family_kernels(device, rows=64, time_it=False)
-        families_phase(device, flows_per_class=48, steps=5, tiny=True, n_serve=300)
+        fams = families_phase(device, flows_per_class=48, steps=5, tiny=True, n_serve=300)
+        multi_model_phase(res, fams, device, "the CPU (rehearsal)")
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -839,21 +1118,26 @@ def main(argv=None) -> int:
 
     log("families:")
     fams = families_phase(device)
-    prof = fams["rnn"]["profile"]
-    if prof is None:
-        log("profiler window (rnn kernel served run): device time not measured "
-            "(the trace holds no device events)")
-    else:
-        log(f"profiler window (rnn kernel served run, {smi}): window "
+    for key, what in (("profile", "graphs"), ("profile_eager", "eager, jit=False")):
+        prof = fams["rnn"][key]
+        if prof is None:
+            log(f"profiler window (rnn kernel served run, {what}): device time not "
+                "measured (the trace holds no device events)")
+            continue
+        log(f"profiler window (rnn kernel served run, {what}, {smi}): window "
             f"{prof['window_us']:.1f} us, device busy {prof['busy_us']:.1f} us, idle share "
             f"{prof['idle_share']:.4f}")
         for name, us in prof["by_name"].items():
             log(f"  device {us:10.1f} us  {name[:110]}")
 
+    log("many models behind one server:")
+    multi = multi_model_phase(res, fams, device, smi)
+
     lines = []
     for name, source, replaces in KERNELS:
         rec = checks[name]
-        launches = res["launches"][name] + sum(f["launches"][name] for f in fams.values())
+        launches = (res["launches"][name] + sum(f["launches"][name] for f in fams.values())
+                    + multi["launches"][name])
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],

@@ -19,6 +19,7 @@ from .plan import (
     bucket_chunks,
     build_plan,
     fuse_banks,
+    resolve_devices,
 )
 from .registry import PlanRegistry, default_registry, plan_for, reset_plan_cache
 
@@ -39,4 +40,5 @@ __all__ = [
     "fuse_banks",
     "plan_for",
     "reset_plan_cache",
+    "resolve_devices",
 ]

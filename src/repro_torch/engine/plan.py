@@ -9,10 +9,14 @@
     stacked kernel launch. Its geometry is checked once, at build, and the
     call path never catches an error or falls back to the per-bank chain.
   * :class:`ExecutionPlan` — the whole model. A call pads the batch up to
-    its bucket (powers of two up to 4096, multiples of 4096 beyond), runs
-    the forward eagerly on the plan's device and slices the padding off.
-    ``traces`` counts first uses of a ``(backend, bucket)`` — the slot
-    where a CUDA graph would be captured.
+    its bucket (powers of two up to 4096, multiples of 4096 beyond) and
+    slices the padding off. On a CUDA device the whole forward runs as ONE
+    CUDA graph per ``(backend, bucket)`` (and device and stream), captured
+    at the first call there and replayed after — the counterpart of the
+    reference's one XLA program per ``(backend, bucket)``; ``traces``
+    counts the captures. On the CPU, and with ``jit=False``, the forward
+    runs eagerly. ``device=`` places one call on another device, with a
+    replica of the bank state built once per device.
   * :func:`build_plan` — compiles every family the nets produce: a bank
     list (MLP-B, the AutoEncoder), the RNN's unrolled window, CNN-B/CNN-M
     (window bank, then the pooled head chain or the NAM sum) and CNN-L
@@ -28,18 +32,21 @@ Backends are semantics-identical up to quantization:
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizer import make_lock
 from repro_torch.core.amm import PegasusLinear, apply_gather, apply_onehot
-from repro_torch.core.fuzzy_tree import hard_index
+from repro_torch.core.fuzzy_tree import FuzzyTree, hard_index
 from repro_torch.device import resolve_device
+from repro_torch.kernels.fuzzy_lut import _lib
 from repro_torch.kernels.fuzzy_lut.kernel import fuzzy_lut, fuzzy_lut_stack, stack_fits
 from repro_torch.kernels.fuzzy_lut.ops import padded_layout
-from repro_torch.kernels.fuzzy_lut.quantized import fuzzy_lut_q8, fuzzy_lut_stack_q8
+from repro_torch.kernels.fuzzy_lut.quantized import (
+    fuzzy_lut_q8, fuzzy_lut_stack_q8, stage_q8,
+)
 
 __all__ = [
     "BACKENDS",
@@ -54,6 +61,7 @@ __all__ = [
     "bucket_chunks",
     "build_plan",
     "fuse_banks",
+    "resolve_devices",
 ]
 
 # Per-group cap on a fused stack's padded output width: one wide bank
@@ -148,6 +156,10 @@ class CompiledBank:
         self.layer = layer.to(device)
         self.features, self.thr, self.lut, _ = padded_layout(self.layer, quant=False)
         _, _, self.lut_q8, self.scales = padded_layout(self.layer, quant=True)
+        if self.features.is_cuda:   # a graph capture may not build it later
+            stage_q8(self.layer.group_size, self.features, self.thr, self.lut_q8,
+                     self.scales, ks=(self.layer.num_groups,),
+                     n_out=self.layer.out_features)
         STATS.layout_builds += 1
 
     def apply(self, x: torch.Tensor, backend: str) -> torch.Tensor:
@@ -229,6 +241,9 @@ class FusedBankStack:
         self.features, self.thr = feats, thr
         self.lut, self.lut_q8 = lut, lut_q8
         self.scales, self.bias = scales, bias
+        if feats.is_cuda:
+            stage_q8(self.v, feats, thr, lut_q8, scales, bias, ks=self.ks,
+                     n_out=self.n_out)
         STATS.layout_builds += 1
 
     def apply(self, x: torch.Tensor, backend: str) -> torch.Tensor:
@@ -307,12 +322,113 @@ def fuse_banks(banks: Sequence[CompiledBank], *,
 # ---------------------------------------------------------------------------
 
 
+def resolve_devices(devices) -> tuple | None:
+    """Normalize a ``devices=`` knob into a canonical device tuple.
+
+    Accepts ``None`` (the default), an int ``k`` (the first ``k`` CUDA
+    devices; more than ``torch.cuda.device_count()`` raises), or a sequence
+    of ``torch.device`` objects, device strings or CUDA indices. A sequence
+    may repeat a device: each entry is a stream of its own in a
+    ``DeviceStreamPool``. The canonical form is ``None`` or a tuple of
+    indexed ``torch.device``, so ``devices=1`` and ``devices=["cuda:0"]``
+    name the same placement.
+    """
+    if devices is None:
+        return None
+    avail = torch.cuda.device_count()
+    if isinstance(devices, int):
+        if devices < 1:
+            raise ValueError(f"devices must be ≥ 1, got {devices}")
+        if devices > avail:
+            raise ValueError(f"devices={devices} but only {avail} CUDA devices "
+                             "are visible")
+        return tuple(torch.device("cuda", i) for i in range(devices))
+    out = []
+    for d in devices:
+        if isinstance(d, int):
+            if not 0 <= d < avail:
+                raise ValueError(f"CUDA device {d} is not visible ({avail} are)")
+            d = torch.device("cuda", d)
+        out.append(resolve_device(d))
+    return tuple(out) or None
+
+
+# CUDA lets one stream capture run at a time in a process: every plan's
+# captures take this lock (capture_error_mode="thread_local" then keeps
+# other threads' allocations and syncs legal while one runs)
+_CAPTURE_LOCK = make_lock("plan._capture_lock")
+# per device, the one stream every capture (and its eager warm-up) runs
+# on. Work another thread enqueues on a capturing stream would join the
+# capture, so it must be a stream no caller runs on: it is high-priority,
+# drawn from another pool than the default-priority streams that callers
+# and DeviceStreamPool workers get from torch.cuda.Stream(). Touched under
+# _CAPTURE_LOCK only.
+_CAPTURE_STREAMS: dict[torch.device, Any] = {}
+
+
+class _GraphPool:
+    """The memory pool that one plan's graphs on one device and stream
+    share, and the lock a replay into it holds from the copy into its
+    static inputs until the copy of its output is enqueued. Each capture
+    frees its intermediates back into the pool, so a graph captured later
+    may keep its output in memory an earlier graph uses for intermediates:
+    two replays of one pool must never interleave. The lock orders them on
+    the host and, since every graph of the pool replays on that one
+    stream, stream order keeps them apart on the device."""
+
+    __slots__ = ("handle", "lock")
+
+    def __init__(self):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.lock = make_lock("plan._graph_pool.lock")
+
+
+class _Graph:
+    """One captured forward at a ``(backend, bucket)`` on one device and
+    stream: the graph, its plan-owned static input and output buffers, the
+    kernel launches one replay makes, and the pool it allocated from."""
+
+    __slots__ = ("graph", "inputs", "output", "launches", "pool")
+
+    def __init__(self, graph, inputs: tuple, output: torch.Tensor,
+                 launches: dict[str, int], pool: _GraphPool):
+        self.graph = graph
+        self.inputs = inputs
+        self.output = output
+        self.launches = launches
+        self.pool = pool
+
+
 class ExecutionPlan:
     """Compiled model: banks + structural forward, bound to one device.
 
     ``forward(apply, state, *inputs)`` walks the model's steps; ``__call__``
     pads the batch to its bucket, runs the forward with the chosen backend
-    and slices the padding off.
+    and slices the padding off — on a CUDA device by replaying the graph
+    captured at the first call at that ``(backend, bucket)`` on that device
+    and stream.
+
+    **Graphs.** The first call at a ``(backend, bucket, device, stream)``
+    copies the padded batch into plan-owned static input buffers, runs the
+    forward once eagerly (its output answers that call), then captures the
+    same forward into a ``torch.cuda.CUDAGraph`` under the process-wide
+    capture lock, and counts one trace. Every later call copies its batch
+    into the static inputs (zeroing the padded rows), replays, and returns
+    a FRESH copy of the static output made on the same stream — two chunks
+    of one request list replay one graph, so a view would be overwritten.
+    Graphs of one device and stream share one memory pool, and a replay
+    holds that pool's lock from its copy-in until its output copy is
+    enqueued; each graph's kernel launches, tallied at capture, are added
+    to the launch counters at every replay. A failed capture raises; it
+    never becomes an eager run. ``jit=False`` runs the forward eagerly on
+    the unpadded inputs (the reference's keyword for its eager path), and
+    on the CPU every call runs eagerly with the same trace and bucket
+    counters.
+
+    **Placed calls.** ``device=`` runs one call on another device with a
+    replica of the bank state built once per device (outside the replica
+    lock); inputs that arrive as host arrays are copied onto it on the
+    caller's current stream. This is what ``DeviceStreamPool`` workers use.
     """
 
     def __init__(self, banks: Sequence[CompiledBank],
@@ -336,12 +452,20 @@ class ExecutionPlan:
         # registry compares it with the live model) and the fusion knobs
         self._aux_token: tuple = ()
         self.fuse_cfg: dict | None = None
-        # counters: the plan may be called from several threads
-        self._lock = threading.Lock()
+        # counters and the graph table: the drain thread, infer() callers
+        # and the stream pool's workers may call one plan at once
+        self._lock = make_lock("plan._ctr.lock")
         self._traces = 0                                    # guarded-by: _lock
         self._traced: set[tuple[str, int]] = set()          # guarded-by: _lock
+        self._first_uses: set[tuple] = set()                # guarded-by: _lock
         self._rows: dict[tuple[str, int], list] = {}        # guarded-by: _lock
         self._calls = 0                                     # guarded-by: _lock
+        self._graphs: dict[tuple, _Graph] = {}              # guarded-by: _lock
+        # per (device, stream): the graphs' memory pool and replay lock
+        # (touched under _CAPTURE_LOCK only)
+        self._pools: dict[tuple, _GraphPool] = {}
+        self._replica_lock = make_lock("plan._replica_lock")
+        self._replicas: dict[torch.device, Any] = {}        # guarded-by: _replica_lock
         STATS.plan_builds += 1
 
     @property
@@ -354,35 +478,130 @@ class ExecutionPlan:
         with self._lock:
             return set(self._traced)
 
-    def _padded(self, x, bucket: int) -> torch.Tensor:
-        x = torch.as_tensor(x, device=self.device)
+    def _padded(self, x, bucket: int, device: torch.device) -> torch.Tensor:
+        x = torch.as_tensor(x, device=device)
         b = x.shape[0]
         if b == bucket:
             return x
-        out = torch.zeros((bucket, *x.shape[1:]), dtype=x.dtype, device=self.device)
+        out = torch.zeros((bucket, *x.shape[1:]), dtype=x.dtype, device=device)
         out[:b] = x
         return out
 
-    def __call__(self, *inputs, backend: str | None = None) -> torch.Tensor:
+    def __call__(self, *inputs, backend: str | None = None, jit: bool = True,
+                 device=None) -> torch.Tensor:
         be = self.backend if backend is None else backend
         if be not in BACKENDS:
             raise ValueError(f"unknown backend {be!r}; expected one of {BACKENDS}")
+        dev = self.device if device is None else resolve_device(device)
+        state = self._state_for(dev)
+        if not jit:
+            with torch.no_grad():
+                return self._forward(lambda step, x: step.apply(x, be), state,
+                                     *(torch.as_tensor(x, device=dev) for x in inputs))
         b = int(np.shape(inputs[0])[0])
         bucket = bucket_batch(b, self.buckets)
-        padded = tuple(self._padded(x, bucket) for x in inputs)
         STATS.jit_calls += 1
+        if dev.type == "cuda":
+            return self._graph_call(be, bucket, b, dev, state, inputs)
+        padded = tuple(self._padded(x, bucket, dev) for x in inputs)
+        self._note_call(be, bucket, b, first_use=(be, bucket, dev))
+        with torch.no_grad():
+            y = self._forward(lambda step, x: step.apply(x, be), state, *padded)
+        return y if bucket == b else y[:b]
+
+    def _note_call(self, be: str, bucket: int, b: int, first_use=None) -> None:
+        """Count one call (and its padded rows); on the CPU, count a trace
+        at the first use of ``first_use``."""
         with self._lock:
             self._calls += 1
-            if (be, bucket) not in self._traced:
-                self._traced.add((be, bucket))
-                self._traces += 1
-                STATS.jit_traces += 1
             rows = self._rows.setdefault((be, bucket), [0, 0])
             rows[0] += b
             rows[1] += bucket
-        with torch.no_grad():
-            y = self._forward(lambda step, x: step.apply(x, be), self._state, *padded)
-        return y if bucket == b else y[:b]
+            if first_use is not None and first_use not in self._first_uses:
+                self._first_uses.add(first_use)
+                self._note_trace(be, bucket)
+
+    # holds: _lock
+    def _note_trace(self, be: str, bucket: int) -> None:
+        self._traced.add((be, bucket))
+        self._traces += 1
+        STATS.jit_traces += 1
+
+    def _state_for(self, device: torch.device):
+        """The bank state on ``device``: the plan's own, or a replica built
+        once per other device. The copy runs OUTSIDE the lock, so placed
+        calls to other devices never wait on it; racing builders both copy
+        once and the first one's replica is kept."""
+        if device == self.device:
+            return self._state
+        with self._replica_lock:
+            st = self._replicas.get(device)
+        if st is None:
+            built = _replicate(self._state, device, {})
+            with self._replica_lock:
+                st = self._replicas.setdefault(device, built)
+        return st
+
+    def _graph_call(self, be, bucket, b, dev, state, inputs) -> torch.Tensor:
+        srcs = tuple(x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+                     for x in inputs)
+        stream = torch.cuda.current_stream(dev)
+        key = (be, bucket, dev, stream.cuda_stream,
+               tuple((tuple(x.shape[1:]), x.dtype) for x in srcs))
+        self._note_call(be, bucket, b)
+        with self._lock:
+            g = self._graphs.get(key)
+        if g is None:
+            y = self._capture(key, be, bucket, b, dev, state, srcs, stream)
+            if y is not None:
+                return y
+            with self._lock:         # a racing call captured it first
+                g = self._graphs[key]
+        with g.pool.lock:
+            for buf, x in zip(g.inputs, srcs):
+                buf[:b].copy_(x)
+                if b < bucket:
+                    buf[b:].zero_()
+            g.graph.replay()
+            y = g.output[:b].clone()
+        _lib.add_launches(g.launches)
+        return y
+
+    def _capture(self, key, be, bucket, b, dev, state, srcs, stream):
+        """First call at ``key``: fill new static inputs, run the forward
+        once eagerly on the capture stream (its output answers this call),
+        then capture it into a graph. Returns None when a racing call
+        captured ``key`` first."""
+        apply = lambda step, x: step.apply(x, be)
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
+            with self._lock:
+                if key in self._graphs:
+                    return None
+            static = tuple(torch.zeros((bucket, *x.shape[1:]), dtype=x.dtype,
+                                       device=dev) for x in srcs)
+            for buf, x in zip(static, srcs):
+                buf[:b].copy_(x)
+            side = _CAPTURE_STREAMS.get(dev)
+            if side is None:
+                side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(device=dev,
+                                                                 priority=-1)
+            pool = self._pools.get(key[2:4])
+            if pool is None:
+                pool = self._pools[key[2:4]] = _GraphPool()
+            side.wait_stream(stream)
+            with torch.cuda.stream(side), torch.no_grad():
+                warm = self._forward(apply, state, *static)
+            graph = torch.cuda.CUDAGraph()
+            with _lib.recording() as tally, torch.no_grad():
+                with torch.cuda.graph(graph, pool=pool.handle, stream=side,
+                                      capture_error_mode="thread_local"):
+                    out = self._forward(apply, state, *static)
+            with self._lock:
+                self._graphs[key] = _Graph(graph, static, out, dict(tally), pool)
+                self._note_trace(be, bucket)
+        stream.wait_stream(side)
+        warm.record_stream(stream)
+        return warm if b == bucket else warm[:b]
 
     def _lut_cell_stats(self) -> tuple[int, int]:
         """(useful, dispatched) LUT cells across the plan's kernel steps."""
@@ -442,6 +661,8 @@ class ExecutionPlan:
             },
             "fused_groups": self.fused_groups,
             "fused_banks": self.fused_banks,
+            # the sharded width: 1 until the sharded mode is ported
+            # (placed calls don't change it)
             "devices": 1,
         }
 
@@ -473,6 +694,28 @@ class ExecutionPlan:
         """Total LUT bytes held by the plan's banks (f32 + int8 layouts)."""
         return sum(b.lut.numel() * b.lut.element_size()
                    + b.lut_q8.numel() * b.lut_q8.element_size() for b in self.banks)
+
+
+def _replicate(obj, device: torch.device, memo: dict):
+    """``obj`` (a plan's state: banks, fused stacks, tensors, trees, and
+    the dicts and lists holding them) rebuilt on ``device``; a bank shared
+    by a stack and the state is replicated once."""
+    if id(obj) in memo:
+        return memo[id(obj)]
+    if isinstance(obj, CompiledBank):
+        out = CompiledBank(obj.layer, device=device)
+    elif isinstance(obj, FusedBankStack):
+        out = FusedBankStack([_replicate(b, device, memo) for b in obj.banks])
+    elif isinstance(obj, (torch.Tensor, FuzzyTree)):
+        out = obj.to(device)
+    elif isinstance(obj, dict):
+        out = {k: _replicate(v, device, memo) for k, v in obj.items()}
+    elif isinstance(obj, (list, tuple)):
+        out = type(obj)(_replicate(v, device, memo) for v in obj)
+    else:
+        out = obj
+    memo[id(obj)] = out
+    return out
 
 
 def _compile_banks(layers: Sequence[PegasusLinear], device) -> list[CompiledBank]:
@@ -605,7 +848,9 @@ def build_plan(
     and non-bank attributes alike (RNN window, CNN nam/out_bias, CNN-L
     emb_tree/logit_lut/bias): rebuild it after mutating the model, or go
     through ``plan_for``, which notices and recompiles. The plan runs on
-    the GPU unless ``device="cpu"``.
+    the GPU unless ``device="cpu"``. The reference's build-time sharded
+    mode (``devices=``) is not ported; serve across devices with
+    ``MultiModelServer(devices=...)``, which places whole calls instead.
     """
     dev = resolve_device(device)
     # the onehot backend is an fp32 matmul: TF32 would cost it fp32 parity

@@ -1,9 +1,9 @@
-"""PlanRegistry: memoized ExecutionPlans with weakref lifetimes (port of the
-memo half of ``repro.engine.registry``).
+"""PlanRegistry: named + memoized ExecutionPlans with weakref lifetimes
+(port of ``repro.engine.registry``).
 
-:meth:`PlanRegistry.plan_for` (and the module-level :func:`plan_for` every
-``pegasus_*_apply`` entry point goes through) is a memoized
-:func:`~repro_torch.engine.plan.build_plan`:
+**Anonymous memo.** :meth:`PlanRegistry.plan_for` (and the module-level
+:func:`plan_for` every ``pegasus_*_apply`` entry point goes through) is a
+memoized :func:`~repro_torch.engine.plan.build_plan`:
 
   * Entries are *weakref-watched*: the registry never pins the caller's
     model (plans hold replicas of the banks, see ``CompiledBank``), and a
@@ -16,7 +16,15 @@ memo half of ``repro.engine.registry``).
     order and an unchanged non-bank aux token (window, NAM flag, bias,
     logit LUT — ``plan._model_aux``); anything else rebuilds.
   * The key holds the build options: the device, ``fuse``,
-    ``fuse_nmax_cap`` and the bucket ladder.
+    ``fuse_nmax_cap``, the bucket ladder and the plan's default backend.
+
+**Named entries** (:meth:`register` / :meth:`get`) are the serving
+surface: ``register("rnn-ids", model)`` pins the model and its plan under
+a stable name until :meth:`evict`. ``get`` revalidates against the live
+model (bank swaps, aux reassignment) and recompiles, so a served name
+never returns stale tables; :meth:`get_with_backend` is the fallback
+ladder's entry (the same model built for another backend). A ``chaos``
+hook (``None`` by default) fires ``plan_build`` at every named build.
 
 **Thread safety:** the memo lives behind one lock, but plan builds run
 outside it, so building a new model never stalls lookups of the others.
@@ -30,10 +38,12 @@ operation drops it.
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from typing import Any
 
+from repro_torch.analysis.sanitizer import make_lock
 from repro_torch.device import resolve_device
 
 from .plan import (
@@ -81,13 +91,18 @@ class _Entry:
 
 
 class PlanRegistry:
-    """A bounded, weakref-watched memo of ExecutionPlans. See the module
-    docstring."""
+    """Owns ExecutionPlans: a bounded weakref-watched memo plus named,
+    strongly-pinned serving entries. See the module docstring."""
 
     def __init__(self, max_plans: int = 64):
         self.max_plans = max_plans
-        self._lock = threading.Lock()
+        # fault-injection hook (repro_torch.launch.chaos), assigned by
+        # MultiModelServer.install_chaos() or directly in tests; duck-typed
+        # so the engine never imports the launch layer
+        self.chaos = None
+        self._lock = make_lock("registry._lock")
         self._memo: OrderedDict[tuple, _Entry] = OrderedDict()   # guarded-by: _lock
+        self._named: dict[str, dict] = {}                        # guarded-by: _lock
         # key → Event: a build in progress; later same-key callers wait for
         # it instead of compiling a duplicate (builds run OUTSIDE _lock)
         self._building: dict[tuple, threading.Event] = {}        # guarded-by: _lock
@@ -174,6 +189,7 @@ class PlanRegistry:
     def clear(self) -> None:
         with self._lock:
             self._memo.clear()
+            self._named.clear()
             self._dead.clear()
 
     def __len__(self) -> int:
@@ -184,7 +200,119 @@ class PlanRegistry:
     def cache_info(self) -> dict:
         with self._lock:
             self._purge()
-            return {"entries": len(self._memo), "capacity": self.max_plans}
+            return {"entries": len(self._memo), "capacity": self.max_plans,
+                    "named": sorted(self._named)}
+
+    # -- named serving entries ----------------------------------------------
+
+    def _fire(self, name: str, backend: str) -> None:
+        chaos = self.chaos
+        if chaos is not None:
+            chaos.fire("plan_build", model=name, backend=backend)
+
+    def register(self, name: str, model: Any, *, backend: str = "onehot",
+                 **build_kw) -> ExecutionPlan:
+        """Compile (or reuse) a plan for ``model`` and pin it under ``name``.
+        Re-registering a name replaces its entry and discards the replaced
+        model's memo entries — unless old and new wrap the SAME bank
+        objects, whose memo entry is the new model's too."""
+        t0 = time.perf_counter()
+        self._fire(name, backend)
+        plan = self.plan_for(model, backend=backend, **build_kw)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            old = self._named.get(name)
+            self._named[name] = {
+                "model": model,
+                # the named store carries its own freshness watcher: a
+                # named plan survives memo LRU churn without recompiling
+                "entry": _Entry(None, model, plan, lambda _ref: None),
+                "backend": backend,
+                "build_kw": dict(build_kw),
+                "plan_build_ms": build_ms,
+                "recompiles": 0,
+            }
+        if (old is not None and old["model"] is not model
+                and tuple(map(id, _model_banks(old["model"])))
+                != tuple(map(id, _model_banks(model)))):
+            self.discard(old["model"])
+        return plan
+
+    def get(self, name: str) -> ExecutionPlan:
+        """The plan serving ``name`` — revalidated against the live model
+        and rebuilt (outside the lock) on a bank or aux reassignment; a
+        rebuild re-times ``plan_build_ms`` and counts in ``recompiles``."""
+        with self._lock:
+            ent = self._named[name]
+            if ent["entry"].is_fresh(ent["model"]):
+                return ent["entry"].plan
+            model = ent["model"]
+            backend, build_kw = ent["backend"], dict(ent["build_kw"])
+        self._fire(name, backend)
+        t0 = time.perf_counter()
+        plan = self.plan_for(model, backend=backend, **build_kw)
+        with self._lock:
+            ent = self._named.get(name)
+            if ent is None or ent["model"] is not model:
+                return plan              # evicted or re-registered meanwhile
+            ent["entry"] = _Entry(None, model, plan, lambda _ref: None)
+            ent["plan_build_ms"] = (time.perf_counter() - t0) * 1e3
+            ent["recompiles"] += 1
+            return plan
+
+    def get_with_backend(self, name: str, backend: str) -> ExecutionPlan:
+        """A plan for the model serving ``name`` built for ``backend``
+        instead of the registered one — the server's fallback-ladder entry.
+        A memo hit once built (the backend is part of the key); the named
+        entry keeps its preferred backend."""
+        with self._lock:
+            ent = self._named[name]
+            model = ent["model"]
+            build_kw = dict(ent["build_kw"])
+        self._fire(name, backend)
+        return self.plan_for(model, backend=backend, **build_kw)
+
+    def backend_of(self, name: str) -> str:
+        """The registered (preferred) backend serving ``name``."""
+        with self._lock:
+            return self._named[name]["backend"]
+
+    def model(self, name: str) -> Any:
+        with self._lock:
+            return self._named[name]["model"]
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._named)
+
+    def __contains__(self, name: str) -> bool:
+        with self._lock:
+            return name in self._named
+
+    def evict(self, name: str) -> bool:
+        """Drop a named entry and its memo entries."""
+        with self._lock:
+            ent = self._named.pop(name, None)
+        if ent is None:
+            return False
+        self.discard(ent["model"])
+        return True
+
+    def stats(self) -> dict:
+        """Per-name compile-cache + build stats (the serving ops surface)."""
+        with self._lock:
+            entries = sorted(self._named.items())
+            return {
+                name: {
+                    "backend": ent["backend"],
+                    "plan_build_ms": ent["plan_build_ms"],
+                    "recompiles": ent["recompiles"],
+                    "num_banks": ent["entry"].plan.num_banks,
+                    "table_bytes": ent["entry"].plan.table_bytes(),
+                    **ent["entry"].plan.compile_stats(),
+                }
+                for name, ent in entries
+            }
 
 
 # ---------------------------------------------------------------------------

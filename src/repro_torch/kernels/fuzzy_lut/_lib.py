@@ -8,12 +8,17 @@ hash of its sources and flags, so an edited source is never served by a
 stale build. All sources compile in parallel, one ``nvcc`` each.
 
 Nothing here falls back: without CUDA or ``nvcc`` :func:`library` raises.
-Each wrapper counts its launches in :data:`LAUNCHES` — one per kernel
-launch, nowhere else — so a run can show that it went through the kernels.
+Each wrapper counts its launches in :data:`LAUNCHES` through
+:func:`count_launch` — one per kernel launch, nowhere else — so a run can
+show that it went through the kernels. A wrapper called while a CUDA graph
+is captured launches nothing: under :func:`recording` its counts go to the
+capture's tally instead, and each replay of the graph adds that tally
+(:func:`add_launches`), so the counts keep meaning launches executed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,8 +30,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["F32Geom", "LAUNCHES", "MAX_L", "Q8Geom", "build_all", "build_log",
-           "check_status", "library", "reset_launches"]
+__all__ = ["F32Geom", "LAUNCHES", "MAX_L", "Q8Geom", "add_launches", "build_all",
+           "build_log", "check_status", "count_launch", "library", "recording",
+           "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
@@ -45,6 +51,10 @@ LAUNCHES = {"fuzzy_lut": 0, "fuzzy_lut_q8": 0, "fuzzy_lut_stack": 0,
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOG: dict[str, str] = {}
 _LOCK = threading.Lock()
+# LAUNCHES is bumped from the drain thread, infer() callers and the stream
+# pool's workers at once: a read-modify-write under a lock loses nothing
+_COUNT_LOCK = threading.Lock()
+_TLS = threading.local()
 
 
 class F32Geom(ctypes.Structure):
@@ -64,8 +74,40 @@ class Q8Geom(ctypes.Structure):
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _COUNT_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` — or, inside :func:`recording` on this
+    thread, one kernel node of the graph being captured."""
+    tally = getattr(_TLS, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+def add_launches(tally: dict[str, int]) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``tally``."""
+    with _COUNT_LOCK:
+        for name, n in tally.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Tally this thread's kernel launches into the yielded dict instead of
+    :data:`LAUNCHES` (around a CUDA graph capture, which launches nothing)."""
+    tally: dict[str, int] = {}
+    _TLS.tally = tally
+    try:
+        yield tally
+    finally:
+        _TLS.tally = None
 
 
 def _nvcc() -> str:

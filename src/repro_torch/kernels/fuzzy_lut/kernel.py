@@ -155,7 +155,7 @@ def _launch_f32(fn_name, x, features, thresholds, lut, bias, ks, n_out, depth, l
     _cuda_call(fn_name, x.device, *(p.data_ptr() for p in args), y.data_ptr(),
                None if leaves is None else leaves.data_ptr(), t, geom, grid,
                threads, smem)
-    _lib.LAUNCHES[_COUNTER[fn_name]] += 1
+    _lib.count_launch(_COUNTER[fn_name])
     return y
 
 

@@ -23,13 +23,13 @@ import torch
 
 from . import _lib
 from .kernel import (
-    SMEM_PER_BLOCK, _bank_plain, _check_bank, _check_stack, _cuda_call, _pad, _sm_count,
-    _stack_plain,
+    SMEM_PER_BLOCK, _bank_plain, _check_bank, _check_stack, _cuda_call, _depth, _pad,
+    _sm_count, _stack_plain,
 )
 
 __all__ = ["Q8Plan", "Q8Stage", "Q8_SMEM_BYTES", "launch_shape", "quantize_lut_int8",
            "fuzzy_lut_q8", "fuzzy_lut_q8_plain", "fuzzy_lut_stack_q8",
-           "fuzzy_lut_stack_q8_plain", "launch_q8", "plan_q8"]
+           "fuzzy_lut_stack_q8_plain", "launch_q8", "plan_q8", "stage_q8"]
 
 # Shared memory one block may opt into on Hopper (227 KB), and the part of
 # it the mbarriers take (csrc/fuzzy_lut_q8.cuh: Q8_BAR_BYTES).
@@ -256,15 +256,43 @@ _STAGE_TABLES: dict[tuple, torch.Tensor] = {}
 
 def _stage_table(plan: Q8Plan, device: torch.device) -> torch.Tensor:
     """The plan's descriptors, then its fills, as one int32 tensor on
-    ``device``, built once."""
+    ``device``, built once. Building it copies from the host, which a CUDA
+    graph capture forbids: a plan's operands are built with their tables
+    (:func:`stage_q8`), and a launch captured into a graph must find its
+    table built — else those operands moved, and this raises."""
     key = (plan, str(device))
     table = _STAGE_TABLES.get(key)
     if table is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "int8 fuzzy-LUT launch with no stage table inside a CUDA graph "
+                "capture: its operands are not the ones stage_q8 planned")
         rows = [v for s in plan.stages for v in s.row()]
         rows += [v for fill in plan.fills for v in fill]
         table = torch.tensor(rows, dtype=torch.int32, device=device)
         _STAGE_TABLES[key] = table
     return table
+
+
+def _launch_plan(v: int, features, thresholds, lut_q8, scales, bias, ks,
+                 n_out) -> Q8Plan:
+    """The :func:`plan_q8` of a launch over these operands; it keys on
+    their alignment, so operands a compiled plan owns keep one plan."""
+    kmax, c, nmax = lut_q8.shape[-3:]
+    ptrs = [features, thresholds, scales, bias, lut_q8]
+    align = tuple(0 if p is None else p.data_ptr() % BULK_ALIGN for p in ptrs)
+    return plan_q8(tuple(ks), v, _depth(c), kmax, nmax, n_out,
+                   has_bias=bias is not None, align=align)
+
+
+def stage_q8(v: int, features, thresholds, lut_q8, scales, bias=None, *,
+             ks: tuple[int, ...], n_out: int) -> None:
+    """Build the stage table of an int8 launch over these CUDA operands
+    ahead of the first launch (a bank: ``ks=(K,)``, ``n_out=N``, no bias;
+    a stack: its ``ks``, ``n_out`` and bias), so that a CUDA graph can
+    capture the launch."""
+    plan = _launch_plan(v, features, thresholds, lut_q8, scales, bias, ks, n_out)
+    _stage_table(plan, features.device)
 
 
 def launch_shape(plan: Q8Plan, t: int, device: torch.device):
@@ -287,10 +315,7 @@ def launch_q8(fn_name: str, x, features, thresholds, lut_q8, scales, bias,
     y = torch.empty((t, n_out), dtype=torch.float32, device=x.device)
     if not t:
         return y
-    ptrs = [features, thresholds, scales, bias, lut_q8]
-    align = tuple(0 if p is None else p.data_ptr() % BULK_ALIGN for p in ptrs)
-    plan = plan_q8(tuple(ks), v, depth, kmax, nmax, n_out,
-                   has_bias=bias is not None, align=align)
+    plan = _launch_plan(v, features, thresholds, lut_q8, scales, bias, ks, n_out)
     rows, nchunks, grid, threads, smem = launch_shape(plan, t, x.device)
     geom = _lib.Q8Geom(L=len(ks), k0=k0, kmax=kmax, nmax=nmax, n_out=n_out, v=v,
                        depth=depth, width=plan.width, kstride=plan.kstride,
@@ -302,7 +327,7 @@ def launch_q8(fn_name: str, x, features, thresholds, lut_q8, scales, bias,
     _cuda_call(fn_name, x.device, *(p.data_ptr() for p in args), y.data_ptr(),
                None if leaves is None else leaves.data_ptr(), table.data_ptr(),
                t, geom, grid, threads, smem)
-    _lib.LAUNCHES[fn_name] += 1
+    _lib.count_launch(fn_name)
     return y
 
 

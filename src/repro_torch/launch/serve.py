@@ -1,11 +1,24 @@
-"""Serving entry point of the port: ``PegasusServer`` over one compiled plan, and
-the ``--pegasus`` demo (port of the Pegasus half of
+"""Serving entry points of the port (port of the Pegasus half of
 ``repro.launch.serve``).
 
-``PegasusServer`` compiles its plan once (int32 features, LUTs, int8 LUT +
-scales on the GPU) and serves request lists: requests are coalesced,
+``PegasusServer`` compiles ONE model's plan once (int32 features, LUTs, int8
+LUT + scales on the GPU) and serves request lists: requests are coalesced,
 chunked along the bucket ladder (full chunks are exact buckets, the tail
 pads minimally) and the outputs split back per request.
+
+``MultiModelServer`` serves MANY named heterogeneous models (MLP, RNN, CNN,
+AE ...) behind one server: plans pinned in a :class:`PlanRegistry`,
+requests addressed by model name, same-model requests coalesced into
+bucket-aligned micro-batches, models scheduled by weighted fair queueing
+(:class:`~repro_torch.launch.scheduler.WFQScheduler`), per-model circuit
+breakers with a fallback to the ``gather`` backend after injected faults,
+bounded retries, and optionally a
+:class:`~repro_torch.launch.devices.DeviceStreamPool` that places each
+chunk on the least-loaded CUDA stream. ``AsyncMultiModelServer``
+makes it an always-on service: a background drain thread, thread-safe
+``submit()`` returning futures, ``infer_async()`` for asyncio, and bounded
+queues with reject/block backpressure. On the card every plan call replays
+a CUDA graph (see :class:`~repro_torch.engine.plan.ExecutionPlan`).
 
 Run the demo on the GPU::
 
@@ -15,26 +28,61 @@ Run the demo on the GPU::
 from __future__ import annotations
 
 import argparse
+import asyncio
+import concurrent.futures
+import threading
 import time
 import warnings
+from collections import deque
+from concurrent.futures import Future
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitizer import ThreadAffinity, make_lock
 from repro_torch.device import resolve_device
-from repro_torch.engine import bucket_chunks, build_plan
+from repro_torch.engine import DEFAULT_BUCKETS, PlanRegistry, bucket_chunks, build_plan
+from repro_torch.engine.plan import resolve_devices
 
+from .chaos import InjectedFaultError
+from .devices import DeviceStreamPool
+from .health import CLOSED, CircuitBreaker
 from .request import InferRequest, InferResult
+from .scheduler import (
+    PRIORITY_WEIGHTS, DeadlineExceededError, QueueFullError, WFQScheduler,
+)
 
-__all__ = ["PegasusServer", "InferRequest", "InferResult", "main"]
+__all__ = ["PegasusServer", "MultiModelServer", "AsyncMultiModelServer",
+           "PartialDrainError", "QueueFullError", "DeadlineExceededError",
+           "PRIORITY_WEIGHTS", "InferRequest", "InferResult", "DeviceStreamPool",
+           "ServerStoppedError", "PoisonedRequestError", "FALLBACK_BACKEND", "main"]
+
+# The bottom rung of the backend fallback ladder: plain PyTorch gather — no
+# CUDA kernel of ours, no one-hot matmul, the least machinery that can fail.
+# A model whose preferred-backend path trips its breaker on injected faults
+# keeps serving on a gather plan (degraded, counted in fallback_batches)
+# until a probe back on the preferred path succeeds. A real failure (a
+# kernel that does not build or launch, a failed capture) never degrades:
+# its slices fail until a probe succeeds.
+FALLBACK_BACKEND = "gather"
 
 
-def _as_requests(requests) -> tuple[list, bool]:
+def _warn_legacy(what: str, instead: str) -> None:
+    """One DeprecationWarning per call site for the pre-typed call shapes,
+    kept as working shims."""
+    warnings.warn(
+        f"{what} is deprecated; {instead} (see repro_torch.launch.request)",
+        DeprecationWarning, stacklevel=3)
+
+
+def _as_requests(requests, *, named: bool) -> tuple[list, bool]:
     """Normalize a ``serve()`` argument into ``(list[InferRequest], typed)``.
 
-    :class:`InferRequest` items pass through; legacy items (bare arrays or
-    input tuples) are wrapped and the caller warns. Mixing the two shapes is
-    a ``TypeError``."""
+    :class:`InferRequest` items pass through. Legacy items — bare arrays or
+    input tuples when ``named=False`` (``PegasusServer``), ``(name,
+    inputs[, deadline_ms])`` triples when ``named=True``
+    (``MultiModelServer``) — are wrapped and the caller warns. Mixing the
+    two shapes is a ``TypeError``."""
     items = list(requests)
     if not items:
         return [], True
@@ -45,15 +93,90 @@ def _as_requests(requests) -> tuple[list, bool]:
         raise TypeError(
             "serve() got a mix of InferRequest and legacy-shaped items — "
             "pass one or the other, not both")
-    return [InferRequest("", tuple(r) if isinstance(r, (tuple, list)) else r)
-            for r in items], False
+    out = []
+    for item in items:
+        if named:
+            deadline_ms = item[2] if len(item) > 2 else None
+            out.append(InferRequest(item[0], item[1], deadline_ms=deadline_ms))
+        else:
+            out.append(InferRequest(
+                "", tuple(item) if isinstance(item, (tuple, list)) else item))
+    return out, False
 
 
-def _coalesce(requests, device: torch.device) -> tuple[list, list[int], int]:
-    """Per-input concatenations on ``device`` + per-request sizes."""
+class PartialDrainError(RuntimeError):
+    """Some requests did not serve — a model failed to drain and/or
+    deadline-bearing requests were shed — while the rest completed.
+
+    Carries ``partial_results`` (``{name: [outputs]}`` for every model that
+    served, a failed model's served prefix included — its name in
+    ``failed`` marks it incomplete), ``failed`` (``{name: exception}``),
+    ``shed`` (``{name: [DeadlineExceededError per shed request]}``; shed
+    work was never computed) and, as ``__cause__``, the first underlying
+    exception."""
+
+    def __init__(self, failed: dict, partial_results: dict,
+                 shed: dict | None = None):
+        self.failed = dict(failed)
+        self.partial_results = partial_results
+        self.shed = {k: list(v) for k, v in (shed or {}).items()}
+        parts = []
+        if self.failed:
+            names = ", ".join(sorted(self.failed))
+            parts.append(f"model(s) {names} failed to drain: "
+                         f"{next(iter(self.failed.values()))!r}")
+        if self.shed:
+            n = sum(len(v) for v in self.shed.values())
+            parts.append(f"{n} request(s) shed past their deadline on "
+                         f"{', '.join(sorted(self.shed))}")
+        super().__init__(
+            "; ".join(parts) + " (served models' outputs are in "
+            ".partial_results; per-model errors in .failed; shed requests "
+            "in .shed)")
+
+
+class ServerStoppedError(RuntimeError):
+    """The server was stopped with this request still queued
+    (``AsyncMultiModelServer.stop(drain=False)``): it was not served and
+    will not be; resubmit after ``start()`` if the work is still wanted."""
+
+
+class PoisonedRequestError(RuntimeError):
+    """A request exhausted its bounded retries (``max_requeues``
+    requeue-at-front attempts all failed); the last dispatch error rides in
+    ``__cause__``."""
+
+
+def _resolve_future(fut: Future | None, *, result=None,
+                    error: BaseException | None = None) -> None:
+    """Resolve a request future, tolerating a caller-side cancel racing the
+    resolution (these futures are never set running, so ``cancel()`` can
+    win between the done() check and the set)."""
+    if fut is None or fut.done():
+        return
+    try:
+        if error is not None:
+            fut.set_exception(error)
+        else:
+            fut.set_result(result)
+    except concurrent.futures.InvalidStateError:
+        pass    # cancelled mid-resolution: the caller owns that outcome
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _coalesce(requests, device: torch.device | None) -> tuple[list, list[int], int]:
+    """Per-input concatenations on ``device`` (numpy on the host when
+    ``device`` is None) + per-request sizes."""
     sizes = [int(np.shape(r[0])[0]) for r in requests]
-    cat = [torch.cat([torch.as_tensor(r[i], device=device) for r in requests])
-           for i in range(len(requests[0]))]
+    if device is None:
+        cat = [np.concatenate([_host(r[i]) for r in requests])
+               for i in range(len(requests[0]))]
+    else:
+        cat = [torch.cat([torch.as_tensor(r[i], device=device) for r in requests])
+               for i in range(len(requests[0]))]
     return cat, sizes, sum(sizes)
 
 
@@ -108,12 +231,14 @@ class PegasusServer:
         self.flows_served += int(np.shape(inputs[0])[0])
         return y
 
-    def serve(self, requests, *, backend: str | None = None) -> list:
+    def serve(self, requests, *, backend: str | None = None,
+              jit: bool = True) -> list:
         """Serve a list of :class:`InferRequest` → list of
         :class:`InferResult` (request order; outputs as numpy arrays). A
         list of bare arrays / input tuples still works, returning the raw
-        outputs, with a ``DeprecationWarning``."""
-        reqs, typed = _as_requests(requests)
+        outputs, with a ``DeprecationWarning``. ``jit=False`` runs every
+        chunk eagerly instead of replaying the plan's CUDA graphs."""
+        reqs, typed = _as_requests(requests, named=False)
         if not reqs:
             return []
         if not typed:
@@ -124,7 +249,7 @@ class PegasusServer:
         chunks, start = [], 0
         for size in bucket_chunks(total, self.plan.buckets, self.max_batch):
             chunks.append(self.plan(*(c[start : start + size] for c in cat),
-                                    backend=backend))
+                                    backend=backend, jit=jit))
             start += size
         out = torch.cat(chunks) if len(chunks) > 1 else chunks[0]
         split = _split(out, sizes)
@@ -134,6 +259,847 @@ class PegasusServer:
         if not typed:
             return split
         return [InferResult(r.model, o, n) for r, o, n in zip(reqs, split, sizes)]
+
+
+class MultiModelServer:
+    """Many heterogeneous models behind ONE server.
+
+    Each model is compiled once and pinned under a name in a
+    :class:`~repro_torch.engine.PlanRegistry` (per-model backend allowed).
+    Requests address models by name; pending same-model requests are
+    coalesced into bucket-aligned micro-batches, and models with pending
+    work are scheduled by weighted fair queueing (deficit round-robin: each
+    model's flow share follows its priority weight), so a burst on one
+    model cannot starve the others and a high-priority model goes first.
+
+    Two call styles:
+      * ``infer(request)`` — immediate single-request dispatch.
+      * ``submit(request)`` + ``drain()`` — enqueue across models, then
+        serve everything; ``drain`` returns ``{name: [output per
+        request]}`` in per-model submit order. ``serve(requests)`` wraps
+        submit + drain for a mixed list, preserving order.
+
+    Ingestion is thread-safe (the scheduler owns every queue behind one
+    lock); plan dispatch stays on the draining thread, or with ``devices=``
+    on the stream pool's workers. Counters are per model and committed
+    only when a pulled slice fully serves; a failing slice is requeued at
+    the front (bounded by ``max_requeues`` and each request's deadline),
+    its exception lands in ``last_drain_errors``, and every other model
+    drains normally. ``schedule_log`` records the model of every dispatched
+    micro-batch.
+
+    Plans are built on ``device`` (the GPU unless ``device="cpu"``).
+    ``devices`` (see :func:`~repro_torch.engine.plan.resolve_devices`)
+    adds a :class:`DeviceStreamPool`: each chunk then crosses to the
+    least-loaded stream's worker as host arrays and runs there as a placed
+    plan call on that worker's CUDA stream, its output returned as numpy.
+    """
+
+    def __init__(self, models: dict | None = None, *, backend: str = "onehot",
+                 max_batch: int | None = None, registry=None, fuse: bool = True,
+                 queue_depth: int | None = None, policy: str = "block",
+                 quantum: int | None = None, devices=None,
+                 device: str | torch.device = "cuda",
+                 breaker_failures: int = 3, breaker_reset_s: float = 1.0,
+                 max_requeues: int = 5, retry_backoff_s: float = 0.02):
+        self.registry = PlanRegistry() if registry is None else registry
+        self.device = resolve_device(device)
+        # devices=None keeps inline dispatch on the draining thread; an
+        # explicit devices=1 still gets a one-stream pool
+        self.devices = resolve_devices(devices)
+        self._pool = DeviceStreamPool(self.devices) if self.devices else None
+        self.backend = backend
+        self.fuse = fuse    # cross-bank fusion default for add_model plans
+        self.max_batch = max(DEFAULT_BUCKETS) if max_batch is None else max_batch
+        self.queue_depth = queue_depth   # default bound for new model queues
+        self.policy = policy             # default backpressure policy
+        # DRR credit per round per unit weight, in flows; None → max_batch
+        # (a weight-1 model earns about one full micro-batch per round)
+        self.quantum = quantum
+        self._sched = WFQScheduler()
+        # counter commits are read-modify-writes shared between the drain
+        # thread and infer() callers
+        self._ctr_lock = make_lock("serve._ctr_lock")
+        self._counters: dict[str, dict] = {}        # guarded-by: _ctr_lock
+        # bounded debugging/fairness surface; deque.append is atomic and
+        # readers tolerate a stale tail, so it takes no lock
+        self.schedule_log: deque = deque(maxlen=4096)
+        self.batches_dispatched = 0                 # guarded-by: _ctr_lock
+        # bound by the async drain loop (never by the sync server): once
+        # bound, all dispatch must happen on that thread
+        self._dispatch_affinity = ThreadAffinity("dispatch")
+        self.last_drain_errors: dict[str, Exception] = {}
+        self.last_shed: dict[str, int] = {}
+        # self-healing: per-model breakers guard the PREFERRED backend; after
+        # breaker_failures consecutive slice failures the model serves on
+        # the gather fallback until a cooldown probe succeeds — but only
+        # when every failure of the streak was an injected fault
+        self.breaker_failures = int(breaker_failures)
+        self.breaker_reset_s = float(breaker_reset_s)
+        self.max_requeues = int(max_requeues)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self._breakers: dict[str, CircuitBreaker] = {}  # guarded-by: _ctr_lock
+        self._health_ctrs: dict[str, dict] = {}         # guarded-by: _ctr_lock
+        # retry pacing, touched only by the one dispatching thread
+        self._retry_streak: dict[str, int] = {}
+        self._retry_not_before: dict[str, float] = {}
+        # the first failure of a model's current streak that was NOT an
+        # injected fault: while one stands, an open breaker fails slices
+        # instead of serving them on gather, which would hide a kernel,
+        # launch or capture fault behind the plain path
+        self._organic_fault: dict[str, Exception] = {}
+        self._chaos = None      # FaultInjector, set by install_chaos()
+        for name in self.registry.names():   # adopt a pre-populated registry
+            self._track(name)
+        for name, model in dict(models or {}).items():
+            self.add_model(name, model)
+
+    def _track(self, name: str, **sched_kw) -> None:
+        """Queue + counters for a registry name this server serves. Server
+        defaults for depth/policy apply only when the queue is created."""
+        if name not in self._sched:
+            sched_kw.setdefault("depth", self.queue_depth)
+            sched_kw.setdefault("policy", self.policy)
+        self._sched.add_queue(name, **sched_kw)
+        with self._ctr_lock:
+            self._counters.setdefault(name, {"requests_served": 0,
+                                             "batches_run": 0,
+                                             "flows_served": 0})
+            if name not in self._breakers:
+                self._breakers[name] = CircuitBreaker(
+                    name, failure_threshold=self.breaker_failures,
+                    reset_timeout_s=self.breaker_reset_s)
+            self._health_ctrs.setdefault(name, {"fallback_batches": 0,
+                                                "probe_batches": 0,
+                                                "retries": 0,
+                                                "poisoned": 0,
+                                                "deadline_dropped": 0})
+
+    def _breaker(self, name: str) -> CircuitBreaker | None:
+        with self._ctr_lock:
+            return self._breakers.get(name)
+
+    def _tracked(self, name: str) -> None:
+        with self._ctr_lock:
+            known = name in self._counters
+        if not known:
+            if name not in self.registry:
+                raise KeyError(
+                    f"unknown model {name!r}; registered: {self.models()}")
+            self._track(name)
+
+    def _quantum(self) -> int:
+        return max(1, int(self.max_batch if self.quantum is None else self.quantum))
+
+    # -- model management ---------------------------------------------------
+
+    def add_model(self, name: str, model, *, backend: str | None = None,
+                  priority: str | None = None, weight: float | None = None,
+                  queue_depth: int | None = None, policy: str | None = None,
+                  **build_kw):
+        """Compile + register one model under ``name``; returns its plan.
+
+        ``backend`` overrides the server default for this plan;
+        ``priority`` (a class of :data:`PRIORITY_WEIGHTS`) or an explicit
+        ``weight`` sets its WFQ share; ``queue_depth``/``policy`` bound its
+        queue (``"reject"`` raises :class:`QueueFullError` at submit,
+        ``"block"`` parks the submitter); ``build_kw`` goes to
+        ``build_plan`` (``fuse``, ``bucket_sizes``, ``device`` ...).
+        Re-registering a name rebuilds its plan and re-applies any explicit
+        scheduling field."""
+        build_kw.setdefault("fuse", self.fuse)
+        build_kw.setdefault("device", self.device)
+        plan = self.registry.register(name, model, backend=backend or self.backend,
+                                      **build_kw)
+        sched_kw: dict = {"priority": priority, "weight": weight}
+        if queue_depth is not None:
+            sched_kw["depth"] = queue_depth
+        if policy is not None:
+            sched_kw["policy"] = policy
+        self._track(name, **sched_kw)
+        return plan
+
+    def set_priority(self, name: str, *, priority: str | None = None,
+                     weight: float | None = None) -> float:
+        """Re-class a served model's WFQ weight (effective next round)."""
+        self._tracked(name)
+        return self._sched.set_weight(name, weight=weight, priority=priority)
+
+    def remove_model(self, name: str) -> bool:
+        """Evict a model; its queued requests' futures fail with KeyError."""
+        dropped = self._sched.remove_queue(name)
+        err = KeyError(f"model {name!r} removed with requests pending")
+        for r in dropped:
+            _resolve_future(r.future, error=err)
+        with self._ctr_lock:
+            self._counters.pop(name, None)
+            self._breakers.pop(name, None)
+            self._health_ctrs.pop(name, None)
+        return self.registry.evict(name)
+
+    def models(self) -> list[str]:
+        return self.registry.names()
+
+    def install_chaos(self, injector) -> None:
+        """Wire a :class:`~repro_torch.launch.chaos.FaultInjector` into every
+        dispatch edge this server owns: its plan calls, the registry's plan
+        builds and the stream pool's dispatches."""
+        self._chaos = injector
+        self.registry.chaos = injector
+        if self._pool is not None:
+            self._pool.chaos = injector
+
+    def uninstall_chaos(self) -> None:
+        """Detach the injector from every hook :meth:`install_chaos` set."""
+        self._chaos = None
+        self.registry.chaos = None
+        if self._pool is not None:
+            self._pool.chaos = None
+
+    # -- request paths ------------------------------------------------------
+
+    def infer(self, request, *legacy_inputs, backend: str | None = None):
+        """Immediate single-request dispatch through the named plan on the
+        calling thread (no queue, no coalescing, no deadline). Takes an
+        :class:`InferRequest` and returns an :class:`InferResult` whose
+        output is a tensor on the plan's device; the legacy
+        ``infer(name, *inputs)`` shape returns the raw output. Plan errors
+        propagate without touching the counters."""
+        if isinstance(request, InferRequest):
+            if legacy_inputs:
+                raise TypeError(
+                    "infer(InferRequest) takes no extra positional inputs "
+                    "— they ride in request.inputs")
+            name, inputs = request.model, request.inputs
+        else:
+            _warn_legacy("MultiModelServer.infer(name, *inputs)",
+                         "pass an InferRequest")
+            name, inputs = request, legacy_inputs
+        self._tracked(name)
+        y = self.registry.get(name)(*inputs, backend=backend)
+        flows = int(np.shape(inputs[0])[0])
+        with self._ctr_lock:
+            c = self._counters[name]
+            c["requests_served"] += 1    # success-only counting
+            c["batches_run"] += 1
+            c["flows_served"] += flows
+        if isinstance(request, InferRequest):
+            return InferResult(name, y, flows)
+        return y
+
+    def _enqueue(self, name: str, inputs: tuple, future: Future | None,
+                 timeout: float | None, deadline_ms: float | None = None,
+                 priority: str = "normal") -> int:
+        self._tracked(name)
+        # requests stay where they are (host arrays or tensors): the
+        # dispatch moves them onto the device that runs the chunk
+        inputs = tuple(x if isinstance(x, torch.Tensor) else np.asarray(x)
+                       for x in inputs)
+        return self._sched.submit(name, inputs, int(np.shape(inputs[0])[0]),
+                                  future=future, timeout=timeout,
+                                  deadline_ms=deadline_ms, priority=priority)
+
+    def submit(self, request, *legacy_inputs, timeout: float | None = None,
+               deadline_ms: float | None = None) -> int:
+        """Enqueue one :class:`InferRequest` for the next :meth:`drain`;
+        returns its queue position at insert time.
+
+        ``timeout`` is the seconds to wait for space in a bounded
+        ``policy="block"`` queue (``None`` waits forever). Raises
+        ``KeyError`` (unknown model), :class:`QueueFullError` (full, or
+        over the ``admit_ms`` horizon) and :class:`DeadlineExceededError`
+        (admission control predicts a missed deadline). The legacy
+        ``submit(name, *inputs, deadline_ms=...)`` shape still works."""
+        if isinstance(request, InferRequest):
+            if legacy_inputs or deadline_ms is not None:
+                raise TypeError(
+                    "submit(InferRequest) takes no extra inputs or "
+                    "deadline_ms — they ride in the request")
+            return self._enqueue(request.model, request.inputs, None, timeout,
+                                 deadline_ms=request.deadline_ms,
+                                 priority=request.priority)
+        _warn_legacy("MultiModelServer.submit(name, *inputs)", "pass an InferRequest")
+        return self._enqueue(request, legacy_inputs, None, timeout,
+                             deadline_ms=deadline_ms)
+
+    def pending(self) -> dict[str, int]:
+        return self._sched.pending()
+
+    def discard_pending(self, name: str) -> int:
+        """Drop a model's queued requests (returns how many) — the escape
+        hatch for a poisoned queue. Their futures are cancelled (or failed,
+        if already running)."""
+        dropped = self._sched.discard(name)
+        err = RuntimeError(f"request discarded from {name!r}'s queue")
+        for r in dropped:
+            if r.future is not None and not r.future.done():
+                if not r.future.cancel():
+                    r.future.set_exception(err)
+        return len(dropped)
+
+    # -- dispatch -----------------------------------------------------------
+
+    def _begin_group(self, name: str, reqs: list, backend: str | None) -> dict:
+        """Phase 1 of serving one pulled slice: coalesce → bucket_chunks
+        micro-batches → plan calls. Kernel launches and graph replays are
+        asynchronous, so this returns once every chunk is enqueued on the
+        device: the caller begins every group of a round before finishing
+        any. With a stream pool each chunk is handed, as host arrays, to
+        the least-loaded stream and ``outs`` holds the pool's futures of
+        numpy outputs. A dispatch failure rides in the ``"error"`` key."""
+        # sanitizer checkpoint: once the async loop binds the dispatch
+        # affinity, any other thread dispatching is a second dispatcher
+        self._dispatch_affinity.assert_here()
+        t0 = time.perf_counter()
+        # queue-wait ends when the slice starts dispatching, not at pull
+        for r in reqs:
+            r.t_dispatch = t0
+        # "managed" = no caller backend override: only managed groups ride
+        # the fallback ladder and feed the model's breaker
+        g: dict = {"name": name, "reqs": reqs, "t0": t0, "degraded": False,
+                   "probe": False, "managed": backend is None}
+        try:
+            br = self._breaker(name) if g["managed"] else None
+            if br is not None and br.state != CLOSED:
+                # the preferred path's breaker is tripped: a granted
+                # cooldown probe retries it; else, after injected faults
+                # only, the slice serves DEGRADED on the gather plan (same
+                # model, same tables), and after a real one it fails fast
+                # into the retry / poisoned-request / deadline triage
+                if br.allow():
+                    g["probe"] = True
+                elif name in self._organic_fault:
+                    raise RuntimeError(
+                        f"model {name!r}: its breaker is open after a failure "
+                        f"of its {self.registry.backend_of(name)!r} path; not "
+                        f"serving it on {FALLBACK_BACKEND!r}"
+                    ) from self._organic_fault[name]
+                else:
+                    g["degraded"] = True
+            if self._chaos is not None:
+                self._chaos.fire(
+                    "plan_call", model=name,
+                    backend=(FALLBACK_BACKEND if g["degraded"] else
+                             backend or self.registry.backend_of(name)))
+            if g["degraded"]:
+                plan = self.registry.get_with_backend(name, FALLBACK_BACKEND)
+            else:
+                plan = self.registry.get(name)
+            if g["degraded"] or g["probe"]:
+                with self._ctr_lock:
+                    h = self._health_ctrs.get(name)
+                    if h is not None:
+                        h["fallback_batches" if g["degraded"] else "probe_batches"] += 1
+            pooled = self._pool is not None
+            cat, sizes, total = _coalesce([r.inputs for r in reqs],
+                                          None if pooled else plan.device)
+            chunks = bucket_chunks(total, plan.buckets, self.max_batch)
+            outs, start = [], 0
+            for size in chunks:
+                sl = (cat if start == 0 and size == total
+                      else [c[start : start + size] for c in cat])
+                if not pooled:
+                    outs.append(plan(*sl, backend=backend))
+                else:
+                    # the chunk runs on the stream with the least pending
+                    # work; assert_worker pins "all plan calls run on pool
+                    # workers" under the sanitizer (a no-op otherwise)
+                    outs.append(self._pool.submit(
+                        lambda d, plan=plan, sl=tuple(sl): (
+                            self._pool.assert_worker(),
+                            plan(*sl, backend=backend, device=d).cpu().numpy())[1],
+                        size))
+                self.schedule_log.append(name)
+                with self._ctr_lock:
+                    self.batches_dispatched += 1
+                start += size
+        except Exception as e:
+            g["error"] = e
+            return g
+        g.update(outs=outs, sizes=sizes, total=total, batches=len(chunks),
+                 t_begun=time.perf_counter())
+        return g
+
+    def _finish_group(self, g: dict):
+        """Phase 2: wait for the group's outputs, split them per request,
+        commit counters, record latency and resolve futures. On failure the
+        model's breaker records it (preferred path only) and the slice goes
+        through :meth:`_retry_or_fail`. Returns the per-request numpy
+        outputs, or None on failure."""
+        name, reqs = g["name"], g["reqs"]
+        err = g.get("error")
+        if err is None:
+            t_finish = time.perf_counter()
+            try:
+                if self._pool is not None:
+                    arrs = [f.result() for f in g["outs"]]
+                    out = np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
+                    split = np.split(out, np.cumsum(g["sizes"])[:-1])
+                else:
+                    out = torch.cat(g["outs"]) if len(g["outs"]) > 1 else g["outs"][0]
+                    split = _split(out, g["sizes"])      # device → host: waits
+            except Exception as e:
+                err = e
+        # a degraded (fallback) slice neither extends nor resets the
+        # preferred path's streak
+        br = (self._breaker(name)
+              if g.get("managed", True) and not g.get("degraded") else None)
+        if err is not None:
+            self.last_drain_errors[name] = err
+            if br is not None:
+                br.record_failure()
+                if not isinstance(err, InjectedFaultError):
+                    self._organic_fault.setdefault(name, err)
+            self._retry_or_fail(name, reqs, err, probe=g.get("probe", False))
+            return None
+        if br is not None:
+            br.record_success()      # a probe's success reinstates
+            self._organic_fault.pop(name, None)
+        self._retry_streak.pop(name, None)
+        self._retry_not_before.pop(name, None)
+        # service = this group's own dispatch phase + its own finish, not
+        # the wall time since begin (which would charge later groups for
+        # earlier groups' host work)
+        service_ms = ((g["t_begun"] - g["t0"]) + (time.perf_counter() - t_finish)) * 1e3
+        self._sched.record_service(name, reqs, service_ms)
+        with self._ctr_lock:
+            c = self._counters.get(name)   # None once remove_model'd
+            if c is not None:
+                c["requests_served"] += len(reqs)
+                c["batches_run"] += g["batches"]
+                c["flows_served"] += g["total"]
+        for r, o in zip(reqs, split):
+            if r.future is not None:
+                r.future.queue_wait_ms = (r.t_dispatch - r.t_submit) * 1e3
+            _resolve_future(r.future, result=o)
+        return split
+
+    def _retry_or_fail(self, name: str, reqs: list, err: Exception, *,
+                       probe: bool = False) -> None:
+        """Failure triage for one slice. Per request: a deadline already
+        burned through fails now with the dispatch error; a request at
+        ``max_requeues`` fails typed :class:`PoisonedRequestError`;
+        everything else is requeued at the front with its count bumped (a
+        failed breaker probe charges no count). Consecutive failed slices
+        back off exponentially (``retry_backoff_s`` doubling, capped at
+        1 s) on the async loop."""
+        now = time.perf_counter()
+        survivors: list = []
+        n_deadline = n_poison = 0
+        for r in reqs:
+            if (r.deadline_ms is not None
+                    and (now - r.t_submit) * 1e3 >= r.deadline_ms):
+                _resolve_future(r.future, error=err)
+                n_deadline += 1
+            elif not probe and r.requeues >= self.max_requeues:
+                perr = PoisonedRequestError(
+                    f"request for {name!r} failed {r.requeues + 1} times "
+                    f"(max_requeues={self.max_requeues}); giving up — "
+                    "discard or fix the request")
+                perr.__cause__ = err
+                _resolve_future(r.future, error=perr)
+                n_poison += 1
+            else:
+                if not probe:
+                    r.requeues += 1
+                survivors.append(r)
+        if survivors:
+            self._sched.requeue_front(name, survivors)
+            streak = self._retry_streak.get(name, 0)
+            self._retry_not_before[name] = now + min(
+                self.retry_backoff_s * (2 ** streak), 1.0)
+            self._retry_streak[name] = streak + 1
+        with self._ctr_lock:
+            h = self._health_ctrs.get(name)
+            if h is not None:
+                h["retries"] += len(survivors)
+                h["poisoned"] += n_poison
+                h["deadline_dropped"] += n_deadline
+
+    def drain(self, *, backend: str | None = None) -> dict:
+        """Serve every queued request in WFQ rounds; returns ``{name:
+        [np.ndarray per request, in submit order]}``.
+
+        Failures are isolated per model: a failing slice is requeued at the
+        front with its counters untouched, the model is skipped for the
+        rest of this drain, and every other model drains normally; the
+        errors land in ``last_drain_errors`` and drain raises only if NO
+        model served. Deadline-bearing requests whose slack ran out while
+        queued are shed (their futures fail with
+        :class:`DeadlineExceededError`); ``last_shed`` counts them."""
+        self.last_drain_errors = {}
+        results: dict = {}
+        failed: set = set()
+        quantum = self._quantum()
+        while True:
+            groups = self._sched.pull_round(quantum, exclude=failed)
+            if not groups:
+                break
+            # dispatch EVERY group, then wait on each: the device works
+            # across models while the host splits and converts
+            begun = [self._begin_group(name, reqs, backend) for name, reqs in groups]
+            for g in begun:
+                outs = self._finish_group(g)
+                if outs is None:
+                    failed.add(g["name"])
+                else:
+                    results.setdefault(g["name"], []).extend(outs)
+        self.last_shed = {name: len(reqs)
+                          for name, reqs in self._sched.take_shed().items()}
+        if self.last_drain_errors and not results:
+            raise next(iter(self.last_drain_errors.values()))
+        return results
+
+    def serve(self, requests, *, backend: str | None = None) -> list:
+        """Submit a mixed list of :class:`InferRequest`, drain, and return
+        one :class:`InferResult` per request, in request order — only when
+        every request served; else raises :class:`PartialDrainError` with
+        the served outputs in ``.partial_results``. The legacy ``(name,
+        inputs[, deadline_ms])`` tuples still work, returning raw outputs.
+        ``backend`` overrides every plan's backend for this drain."""
+        reqs, typed = _as_requests(requests, named=True)
+        if not typed:
+            _warn_legacy("MultiModelServer.serve(list of (name, inputs) tuples)",
+                         "pass a list of InferRequest")
+        order: list[tuple[InferRequest, Future]] = []
+        for req in reqs:
+            # a private future per request keeps served/shed alignment
+            fut: Future = Future()
+            try:
+                self._enqueue(req.model, req.inputs, fut, None,
+                              deadline_ms=req.deadline_ms, priority=req.priority)
+            except DeadlineExceededError as e:
+                _resolve_future(fut, error=e)   # admission refusal == shed
+            order.append((req, fut))
+        by_model = self.drain(backend=backend)
+        # a model in last_drain_errors did NOT fully serve, even if an
+        # earlier slice of it landed in by_model
+        failed = {name: self.last_drain_errors[name]
+                  for name in dict.fromkeys(r.model for r, _ in order)
+                  if name in self.last_drain_errors}
+        shed: dict[str, list] = {}
+        for req, fut in order:
+            if fut.done():
+                exc = fut.exception()
+                if isinstance(exc, DeadlineExceededError):
+                    shed.setdefault(req.model, []).append(exc)
+        if failed or shed:
+            cause = (next(iter(failed.values())) if failed
+                     else next(iter(shed.values()))[0])
+            raise PartialDrainError(failed, by_model, shed=shed) from cause
+        if not typed:
+            return [fut.result() for _, fut in order]
+        return [InferResult(req.model, fut.result(), req.flows,
+                            queue_wait_ms=getattr(fut, "queue_wait_ms", None))
+                for req, fut in order]
+
+    def close(self) -> None:
+        """Release the stream pool's workers (a no-op without one); queued
+        device work finishes first."""
+        if self._pool is not None:
+            self._pool.close()
+
+    def stats(self) -> dict:
+        """The serving-stats schema shared with ``PegasusServer``:
+        ``serving`` (per-model and aggregate counters), ``engine`` (registry
+        cache, per-model plan stats), ``scheduler`` (queue config, latency
+        percentiles), ``slo`` (admission/shed/goodput counters),
+        ``devices`` (the stream pool) and ``health`` (breakers, fallback
+        and retry counters, degraded models, the chaos injector)."""
+        reg = self.registry.stats()
+        zeros = {"requests_served": 0, "batches_run": 0, "flows_served": 0}
+        # registry names BEFORE the counter lock: registry._lock ranks
+        # outside serve._ctr_lock
+        names = self.models()
+        with self._ctr_lock:
+            per_model = {name: {**zeros, **self._counters.get(name, {})}
+                         for name in names}
+            batches_dispatched = self.batches_dispatched
+            breakers = dict(self._breakers)
+            hctrs = {n: dict(c) for n, c in self._health_ctrs.items()}
+        health_models: dict = {}
+        degraded_models: list = []
+        for n in names:
+            br = breakers.get(n)
+            if br is None:
+                continue
+            bst = br.stats()
+            is_degraded = bst["state"] != CLOSED
+            if is_degraded:
+                degraded_models.append(n)
+            health_models[n] = {
+                **bst, **hctrs.get(n, {}),
+                "degraded": is_degraded,
+                "preferred_backend": reg.get(n, {}).get("backend"),
+                "fallback_backend": FALLBACK_BACKEND,
+            }
+        return {
+            "backend": self.backend,
+            "serving": {
+                "requests_served": sum(m["requests_served"] for m in per_model.values()),
+                "batches_run": sum(m["batches_run"] for m in per_model.values()),
+                "flows_served": sum(m["flows_served"] for m in per_model.values()),
+                "batches_dispatched": batches_dispatched,
+                "models": per_model,
+            },
+            "engine": {"cache": self.registry.cache_info(), "models": reg},
+            "scheduler": {"models": self._sched.describe(),
+                          "latency": self._sched.latency_stats()},
+            "slo": {"models": self._sched.counters()},
+            "devices": (self._pool.stats() if self._pool is not None
+                        else {"count": 1, "per_device": []}),
+            "health": {
+                "models": health_models,
+                "degraded_models": sorted(degraded_models),
+                "chaos": (self._chaos.stats() if self._chaos is not None
+                          else {"installed": False}),
+            },
+        }
+
+    def slo_counters(self) -> dict:
+        """The scheduler's per-model SLO counters alone."""
+        return self._sched.counters()
+
+    def reset_slo_counters(self) -> None:
+        self._sched.reset_counters()
+
+    def reset_latency_stats(self) -> None:
+        self._sched.reset_latency()
+
+
+class AsyncMultiModelServer(MultiModelServer):
+    """The always-on :class:`MultiModelServer`: a background drain thread
+    plus future-returning ``submit()``.
+
+    ``submit(request)`` is safe from any thread and returns a
+    :class:`concurrent.futures.Future` of the request's
+    :class:`InferResult` (or its dispatch error: async requests are not
+    requeued past their retries — the future carries the exception).
+    Queues are bounded (``queue_depth``, default 1024 requests per model)
+    with ``policy`` backpressure: ``"block"`` parks the submitter until the
+    loop frees space, ``"reject"`` raises :class:`QueueFullError` at once.
+    The loop pulls one WFQ round at a time and funnels every plan call
+    through its thread (or, with ``devices=``, the stream pool's workers).
+    Use it as a context manager, or ``start()``/``stop()``::
+
+        with AsyncMultiModelServer({"ids": banks}, backend="kernel") as srv:
+            futs = [srv.submit(InferRequest("ids", x)) for x in bursts]
+            outs = [f.result().output for f in futs]
+
+    ``stop(drain=True)`` (what ``__exit__`` calls) waits for the queues to
+    empty, then joins the loop: pending futures all resolve first.
+    """
+
+    def __init__(self, models: dict | None = None, *,
+                 queue_depth: int | None = 1024, policy: str = "block",
+                 idle_wait: float = 0.05, **kw):
+        super().__init__(models, queue_depth=queue_depth, policy=policy, **kw)
+        self._idle_wait = idle_wait
+        self._stop_flag = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.loop_errors: deque = deque(maxlen=64)   # unexpected loop crashes
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "AsyncMultiModelServer":
+        """Spawn the background drain loop (idempotent); returns ``self``."""
+        if self._thread is None or not self._thread.is_alive():
+            self._stop_flag.clear()
+            self._thread = threading.Thread(
+                target=self._serve_loop, name="pegasus-drain", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self, *, drain: bool = True, timeout: float | None = None) -> None:
+        """Stop the loop. ``drain=True`` first waits for every queue to
+        empty, so in-flight futures all resolve; ``drain=False`` halts after
+        the current round and fails every still-pending future with
+        :class:`ServerStoppedError`. ``timeout`` bounds drain-wait + join in
+        seconds; on expiry the loop may still be alive (``running`` stays
+        true) and a later ``stop()`` can finish the job."""
+        if self._thread is None:
+            if not drain:
+                self._fail_pending_stopped()
+            return
+        deadline = None if timeout is None else time.monotonic() + timeout
+        if drain:
+            while self.pending() and self._thread.is_alive():
+                if deadline is not None and time.monotonic() > deadline:
+                    break
+                time.sleep(0.002)
+        self._stop_flag.set()
+        self._sched.kick()
+        self._thread.join(None if deadline is None
+                          else max(0.0, deadline - time.monotonic()))
+        # forget the thread only once it exited: else start() could spawn
+        # a second concurrent dispatcher
+        if not self._thread.is_alive():
+            self._thread = None
+            if drain and self.pending():
+                # a submit raced the stop flag: serve the stragglers inline,
+                # and fail any future a failing slice would strand
+                try:
+                    self.drain()
+                except Exception:
+                    pass                        # recorded per model below
+                for name in list(self.pending()):
+                    err = self.last_drain_errors.get(name) or RuntimeError(
+                        f"server stopped with {name!r} requests pending")
+                    for r in self._sched.discard(name):
+                        _resolve_future(r.future, error=err)
+            elif not drain:
+                self._fail_pending_stopped()
+
+    def _fail_pending_stopped(self) -> None:
+        for name in list(self.pending()):
+            err = ServerStoppedError(
+                f"server stopped (drain=False) with {name!r} requests "
+                "pending — the request was not served; resubmit after "
+                "start() if still wanted")
+            for r in self._sched.discard(name):
+                _resolve_future(r.future, error=err)
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def __enter__(self) -> "AsyncMultiModelServer":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.stop()
+
+    # -- ingestion ----------------------------------------------------------
+
+    def _typed_future(self, req: InferRequest, raw: Future) -> Future:
+        """A future of :class:`InferResult` over a raw-output future."""
+        out: Future = Future()
+
+        def _done(f: Future) -> None:
+            if f.cancelled():
+                out.cancel()
+                return
+            exc = f.exception()
+            if exc is not None:
+                _resolve_future(out, error=exc)
+            else:
+                _resolve_future(out, result=InferResult(
+                    req.model, f.result(), req.flows,
+                    queue_wait_ms=getattr(f, "queue_wait_ms", None)))
+
+        raw.add_done_callback(_done)
+        return out
+
+    def submit(self, request, *legacy_inputs, timeout: float | None = None,
+               deadline_ms: float | None = None) -> Future:
+        """Thread-safe enqueue of one :class:`InferRequest`; returns a
+        future of its :class:`InferResult`. As
+        :meth:`MultiModelServer.submit`, except that a shed or
+        admission-refused request FAILS THE FUTURE with
+        :class:`DeadlineExceededError` instead of raising here. The legacy
+        ``submit(name, *inputs)`` shape returns a future of the raw
+        output."""
+        fut: Future = Future()
+        if isinstance(request, InferRequest):
+            if legacy_inputs or deadline_ms is not None:
+                raise TypeError(
+                    "submit(InferRequest) takes no extra inputs or "
+                    "deadline_ms — they ride in the request")
+            try:
+                self._enqueue(request.model, request.inputs, fut, timeout,
+                              deadline_ms=request.deadline_ms,
+                              priority=request.priority)
+            except DeadlineExceededError as e:
+                _resolve_future(fut, error=e)
+            return self._typed_future(request, fut)
+        _warn_legacy("AsyncMultiModelServer.submit(name, *inputs)",
+                     "pass an InferRequest")
+        try:
+            self._enqueue(request, legacy_inputs, fut, timeout,
+                          deadline_ms=deadline_ms)
+        except DeadlineExceededError as e:
+            _resolve_future(fut, error=e)
+        return fut
+
+    async def infer_async(self, request, *legacy_inputs,
+                          timeout: float | None = None,
+                          deadline_ms: float | None = None):
+        """``await`` the :class:`InferResult` of one request from a running
+        event loop without blocking it: the enqueue (which ``"block"``
+        backpressure may park) runs in a worker thread, then the future is
+        awaited. Raises ``RuntimeError`` if the drain loop is not
+        running."""
+        if not self.running:
+            raise RuntimeError(
+                "the background drain loop is not running — start() the "
+                "server (or use it as a context manager) before "
+                "infer_async(), otherwise the await would never resolve")
+        fut = await asyncio.to_thread(self.submit, request, *legacy_inputs,
+                                      timeout=timeout, deadline_ms=deadline_ms)
+        return await asyncio.wrap_future(fut)
+
+    def serve(self, requests, *, backend: str | None = None) -> list:
+        """Submit everything and wait for the results in order; each future
+        fails on its own, and this raises the first failed request's error
+        once all are settled."""
+        if backend is not None:
+            raise ValueError(
+                "AsyncMultiModelServer.serve dispatches via the background "
+                "loop; per-call backend overrides are a sync-drain feature "
+                "(register the model with the backend you want instead)")
+        if not self.running:
+            raise RuntimeError(
+                "the background drain loop is not running — start() the "
+                "server (or use it as a context manager) before serve(), "
+                "otherwise the submitted futures would never resolve")
+        reqs, typed = _as_requests(requests, named=True)
+        if not typed:
+            _warn_legacy("AsyncMultiModelServer.serve(list of (name, inputs) "
+                         "tuples)", "pass a list of InferRequest")
+        futs = [self.submit(req) for req in reqs]
+        concurrent.futures.wait(futs)   # settle everything before raising
+        if not typed:
+            return [f.result().output for f in futs]
+        return [f.result() for f in futs]
+
+    # -- the background loop ------------------------------------------------
+
+    def _serve_loop(self) -> None:
+        # claim the dispatch edge for this thread (released on exit so a
+        # stop()'s inline straggler drain stays legal)
+        self._dispatch_affinity.bind()
+        try:
+            self._serve_loop_body()
+        finally:
+            self._dispatch_affinity.release()
+
+    def _serve_loop_body(self) -> None:
+        while not self._stop_flag.is_set():
+            try:
+                # models inside their retry backoff wait out the pause
+                now = time.perf_counter()
+                backoff = frozenset(
+                    n for n, t in self._retry_not_before.items() if t > now)
+                groups = self._sched.pull_round(self._quantum(), exclude=backoff)
+                if not groups:
+                    if backoff:
+                        time.sleep(0.002)
+                    else:
+                        self._sched.wait_for_work(self._idle_wait)
+                    continue
+                begun = [self._begin_group(name, reqs, None) for name, reqs in groups]
+                for g in begun:
+                    try:
+                        self._finish_group(g)
+                    except Exception as e:
+                        # _finish_group routes dispatch errors onto futures;
+                        # anything escaping it would strand this group's
+                        self.loop_errors.append(e)
+                        for r in g["reqs"]:
+                            _resolve_future(r.future, error=e)
+            except Exception as e:               # pragma: no cover - safety
+                self.loop_errors.append(e)
+                time.sleep(self._idle_wait)
 
 
 def _pegasus_demo(args) -> None:

@@ -203,16 +203,23 @@ def test_pegasusify_refine_waits_for_later_slice():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port pulls in neither jax nor repro."""
+    """Importing every module of the port, and chip_smoke.py, pulls in
+    neither jax nor repro."""
     code = (
-        "import importlib, pkgutil, sys, repro_torch\n"
+        "import importlib, importlib.util, pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n.startswith('jaxlib') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "for n in ('engine.registry', 'nets.rnn', 'nets.cnn', 'nets.autoencoder'):\n"
+        "for n in ('engine.registry', 'nets.rnn', 'nets.cnn', 'nets.autoencoder',\n"
+        "          'analysis.sanitizer', 'launch.health', 'launch.scheduler',\n"
+        "          'launch.chaos', 'launch.devices', 'launch.serve'):\n"
         "    assert 'repro_torch.' + n in sys.modules, n\n"
+        "serve = sys.modules['repro_torch.launch.serve']\n"
+        "assert serve.MultiModelServer and serve.AsyncMultiModelServer\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})

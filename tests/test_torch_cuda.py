@@ -294,3 +294,147 @@ def test_family_served_kernel_equals_gather(dev, family):
         assert {k: n for k, n in _lib.LAUNCHES.items() if n} == want, be
         assert np.isfinite(outs[be]).all() and outs[be].shape == (len(inputs[0]), 3)
     assert np.array_equal(outs["kernel"], outs["gather"])
+
+
+# ---------------------------------------------------------------------------
+# Whole-plan CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_FAMILIES = ["mlp", "rnn", "cnn_b", "cnn_m", "cnn_l", "ae"]
+_GRAPH_MODELS: dict = {}
+
+
+def _graph_model(family, dev):
+    """A family trained a few steps on the card and pegasusified at tiny
+    depth (``chip_smoke._pegasusified``), with its test inputs; built once."""
+    if family not in _GRAPH_MODELS:
+        import importlib.util
+        import pathlib
+
+        from repro_torch.data.synthetic_traffic import make_dataset
+        from repro_torch.nets.mlp import pegasusify_mlp, train_mlp
+
+        root = pathlib.Path(__file__).resolve().parents[1]
+        spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        ds = make_dataset("peerrush", flows_per_class=100)
+        if family == "mlp":
+            stats = ds.train["stats"].astype(np.float32)
+            m = train_mlp(stats, ds.train["label"], 3, steps=30, device=dev)
+            model = pegasusify_mlp(m, stats, depth=4, refine_steps=0)
+            inputs = (ds.test["stats"].astype(np.float32),)
+        else:
+            model, _, inputs = smoke._pegasusified(family, ds, dev, steps=30, tiny=True)
+        _GRAPH_MODELS[family] = (model, inputs)
+    return _GRAPH_MODELS[family]
+
+
+def _rows(inputs, b, shift=0):
+    """``b`` rows of the inputs, tiled, starting ``shift`` rows in."""
+    n = len(inputs[0])
+    idx = (np.arange(b) + shift) % n
+    return tuple(np.ascontiguousarray(a[idx]) for a in inputs)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "kernel_q8"])
+@pytest.mark.parametrize("family", GRAPH_FAMILIES)
+def test_graph_replay_equals_eager(dev, family, backend):
+    """At buckets 8, 1024 and 4096: the first call (eager warm-up, then the
+    capture) and the replays equal ``jit=False`` bit for bit; a replay
+    launches what the eager forward launches; a warm bucket adds no trace;
+    each call returns a fresh tensor that a later replay leaves alone."""
+    from repro_torch.engine import build_plan
+
+    model, inputs = _graph_model(family, dev)
+    plan = build_plan(model, device=dev)
+    for b in (8, 1024, 4096):
+        x1, x2 = _rows(inputs, b), _rows(inputs, b, shift=5)
+        _lib.reset_launches()
+        want1 = plan(*x1, backend=backend, jit=False)
+        torch.cuda.synchronize()
+        eager = dict(_lib.LAUNCHES)
+        want2 = plan(*x2, backend=backend, jit=False)
+        first = plan(*x1, backend=backend)
+        traces = plan.trace_count
+        _lib.reset_launches()
+        y1 = plan(*x1, backend=backend)
+        torch.cuda.synchronize()
+        assert dict(_lib.LAUNCHES) == eager and sum(eager.values()) > 0, (b, eager)
+        y2 = plan(*x2, backend=backend)
+        torch.cuda.synchronize()
+        assert plan.trace_count == traces, b
+        assert torch.equal(first, want1) and torch.equal(y1, want1), b
+        assert torch.equal(y2, want2), b
+    assert {bk for _, bk in plan.compiled_buckets} == {8, 1024, 4096}
+
+
+def test_graph_replay_on_two_streams(dev):
+    """Two threads replaying one plan, each on its own stream (a graph
+    each), give what one thread gives."""
+    import threading
+
+    from repro_torch.engine import build_plan
+
+    model, inputs = _graph_model("rnn", dev)
+    plan = build_plan(model, device=dev)
+    xs = [_rows(inputs, 1024, shift=s) for s in range(6)]
+    want = [plan(*x, backend="kernel").cpu() for x in xs]
+    got: dict = {}
+
+    def work(tag):
+        with torch.cuda.stream(torch.cuda.Stream(device=dev)):
+            for rep in range(4):
+                for i, x in enumerate(xs):
+                    got[(tag, rep, i)] = plan(*x, backend="kernel").cpu()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert len(got) == 2 * 4 * len(xs)
+    for (_, _, i), y in got.items():
+        assert torch.equal(y, want[i]), i
+
+
+@pytest.mark.parametrize("family", ["mlp", "rnn", "cnn_b"])
+def test_graph_replays_of_one_pool_do_not_interleave(dev, family):
+    """Two threads on the default stream and one on a stream of its own
+    call one plan at buckets 8, 1024 and 4096 in different orders, from
+    cold (so captures run while other graphs replay). The graphs of one
+    stream share a memory pool, where a later graph's output may lie in an
+    earlier graph's intermediates: every output must still equal
+    ``jit=False``."""
+    import threading
+
+    from repro_torch.engine import build_plan
+
+    model, inputs = _graph_model(family, dev)
+    plan = build_plan(model, device=dev)
+    xs = {b: [_rows(inputs, b, shift=s) for s in range(3)] for b in (8, 1024, 4096)}
+    want = {(b, i): plan(*x, backend="kernel", jit=False).cpu()
+            for b, bx in xs.items() for i, x in enumerate(bx)}
+    got: dict = {}
+    orders = {0: (8, 1024, 4096), 1: (4096, 1024, 8), 2: (1024, 8, 4096)}
+
+    def work(tag):
+        stream = (torch.cuda.Stream(device=dev) if tag == 2
+                  else torch.cuda.default_stream(dev))
+        with torch.cuda.stream(stream):
+            for rep in range(6):
+                for b in orders[tag]:
+                    for i, x in enumerate(xs[b]):
+                        got[(tag, rep, b, i)] = plan(*x, backend="kernel").cpu()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in orders]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert len(got) == len(orders) * 6 * 3 * 3
+    for (tag, rep, b, i), y in got.items():
+        assert torch.equal(y, want[(b, i)]), (tag, rep, b, i)
+    assert {bk for _, bk in plan.compiled_buckets} == {8, 1024, 4096}

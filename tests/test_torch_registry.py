@@ -147,7 +147,7 @@ def test_plan_registry_bounded_and_explicit_eviction():
     assert reg.plan_for(keep[0], device=CPU) is not plans[0]   # oldest evicted → rebuilt
     assert reg.discard(keep[0]) == 1                   # explicit eviction
     assert len(reg) == 1
-    assert reg.cache_info() == {"entries": 1, "capacity": 2}
+    assert reg.cache_info() == {"entries": 1, "capacity": 2, "named": []}
     reg.clear()
     assert len(reg) == 0
 
