@@ -46,7 +46,15 @@ Phases (any failure exits nonzero; none is caught and passed over):
      injected plan-call failures of the RNN open its breaker, it serves
      degraded on ``gather`` (bit-equal to ``kernel``) and a probe closes
      the breaker again;
-  7. a ``{"kernels": [...]}`` line, then the device line as the last line.
+  7. refinement: phase 4's MLP-B teacher pegasusified with the reference's
+     default ``refine_steps=100`` on the card (timed; each bank's
+     ``hard_mse`` before and after; new plans for the refined banks in the
+     memo), served as phase 4 serves (``kernel`` bit-equal to ``gather``,
+     ``kernel_q8`` within the limits, every kernel launched) and timed in
+     turns against phase 4's servers; N3IC and BoS trained and Leo fitted
+     beside MLP-B and RNN-B (the paper's Table 5, printed); one 20-step
+     refine of CNN-M's depth-12 window bank;
+  8. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -449,8 +457,6 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
     import torch
 
     from repro_torch.data.synthetic_traffic import make_dataset
-    from repro_torch.kernels.fuzzy_lut import _lib
-    from repro_torch.launch.serve import PegasusServer
     from repro_torch.nets.common import macro_f1
     from repro_torch.nets.mlp import mlp_apply, pegasusify_mlp, train_mlp
 
@@ -472,11 +478,30 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
     y = np.tile(ds.test["label"], -(-n_serve // len(ds.test["label"])))[:n_serve]
     with torch.no_grad():
         teacher = mlp_apply(mlp, torch.as_tensor(x, device=device)).argmax(-1).cpu().numpy()
-    res = dict(teacher_f1=macro_f1(teacher, y, ds.num_classes), runs={},
-               requests=len(requests), flows=n_serve, train_s=train_s,
-               model=banks, request_list=requests)
+    res = dict(teacher_f1=macro_f1(teacher, y, ds.num_classes), requests=len(requests),
+               flows=n_serve, train_s=train_s, peg_s=peg_s, model=banks,
+               request_list=requests, teacher=mlp, ds=ds, depth=depth, x=x, y=y)
+    res.update(serve_mlp(banks, requests, x, y, ds.num_classes, device))
+    if device.type == "cuda":
+        res["profile"] = profile_window(res["runs"][("kernel_q8", True)]["server"], requests)
+    return res
 
-    launches = dict.fromkeys(_lib.LAUNCHES, 0)
+
+def serve_mlp(banks, requests, x, y, num_classes: int, device) -> dict:
+    """Serve MLP-B ``banks`` through ``PegasusServer`` on gather, kernel and
+    kernel_q8, fused and unfused: ``kernel`` bit-equal to ``gather``,
+    ``kernel_q8`` within the reference's limits, and on the card each
+    kernel run launching only its own kernel. Returns the runs and the
+    launches of the timed runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fuzzy_lut import _lib
+    from repro_torch.launch.serve import PegasusServer
+    from repro_torch.nets.common import macro_f1
+
+    n_serve = len(x)
+    runs, launches = {}, dict.fromkeys(_lib.LAUNCHES, 0)
     for backend, fuse in (("gather", True), ("kernel", True), ("kernel_q8", True),
                           ("kernel", False), ("kernel_q8", False)):
         server = PegasusServer(banks, backend=backend, fuse=fuse, device=device)
@@ -491,25 +516,25 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
         for k, n in run_launches.items():
             launches[k] += n
         out = np.concatenate([r.output for r in results])
-        if out.shape != (n_serve, ds.num_classes) or not np.isfinite(out).all():
+        if out.shape != (n_serve, num_classes) or not np.isfinite(out).all():
             raise AssertionError(f"{backend}: output {out.shape} not finite of the expected shape")
         st = server.stats()
-        res["runs"][(backend, fuse)] = dict(
+        runs[(backend, fuse)] = dict(
             out=out, flows_per_s=n_serve / dt, launches=run_launches,
-            f1=macro_f1(out.argmax(-1), y, ds.num_classes),
+            f1=macro_f1(out.argmax(-1), y, num_classes),
             batches=st["serving"]["batches_run"] // 2, server=server)
         log(f"  served {len(requests)} requests ({n_serve} flows, "
-            f"{res['runs'][(backend, fuse)]['batches']} batches) on {backend} "
+            f"{runs[(backend, fuse)]['batches']} batches) on {backend} "
             f"fuse={fuse}: {n_serve / dt:.1f} flows/s, launches {run_launches}")
 
-    ref = res["runs"][("gather", True)]["out"]
+    ref = runs[("gather", True)]["out"]
     for fuse in (True, False):
-        run = res["runs"][("kernel", fuse)]
+        run = runs[("kernel", fuse)]
         run["max_abs_err"] = float(np.abs(run["out"] - ref).max())
         if not np.array_equal(run["out"], ref):
             raise AssertionError(f"kernel fuse={fuse}: not bit-equal to gather "
                                  f"(max |kernel - gather| {run['max_abs_err']})")
-        run = res["runs"][("kernel_q8", fuse)]
+        run = runs[("kernel_q8", fuse)]
         plan = run["server"].plan
         rels = []
         for bank, xb in zip(plan.banks, plan.bank_inputs(x)):
@@ -523,19 +548,17 @@ def main_path(device, *, flows_per_class: int = 1500, steps: int = 800,
             raise AssertionError(f"kernel_q8 fuse={fuse}: per-bank rel {rels} "
                                  f"(< {Q8_BANK_REL}), agreement {run['agree']} (>= {Q8_AGREE})")
         log(f"  kernel fuse={fuse}: max |kernel - gather| = "
-            f"{res['runs'][('kernel', fuse)]['max_abs_err']}; kernel_q8: per-bank "
+            f"{runs[('kernel', fuse)]['max_abs_err']}; kernel_q8: per-bank "
             f"rel err {['%.4f' % r for r in rels]}, argmax agreement {run['agree']:.4f}")
 
     if device.type == "cuda":
-        res["profile"] = profile_window(res["runs"][("kernel_q8", True)]["server"], requests)
         expect = {("kernel", True): "fuzzy_lut_stack", ("kernel_q8", True): "fuzzy_lut_stack_q8",
                   ("kernel", False): "fuzzy_lut", ("kernel_q8", False): "fuzzy_lut_q8"}
         for key, name in expect.items():
-            got = res["runs"][key]["launches"]
+            got = runs[key]["launches"]
             if got[name] == 0 or sum(got.values()) != got[name]:
                 raise AssertionError(f"{key}: launches {got}; expected only {name}")
-    res["launches"] = launches
-    return res
+    return dict(runs=runs, launches=launches)
 
 
 def _requests(model: str, arrays: tuple, n_serve: int) -> tuple[list, tuple]:
@@ -559,8 +582,8 @@ def _requests(model: str, arrays: tuple, n_serve: int) -> tuple[list, tuple]:
 def _pegasusified(name, ds, device, *, steps: int, tiny: bool):
     """Train ``name``'s teacher on ``device`` and pegasusify it at the
     family's published widths (tiny depths for the rehearsal). Returns the
-    model, the teacher's forward over the served inputs, and the inputs of
-    the test split."""
+    model, the teacher's forward over the served inputs (the AE: the
+    teacher itself), the inputs of the test split and the teacher."""
     import numpy as np
 
     from repro_torch.nets import autoencoder as ae
@@ -570,23 +593,23 @@ def _pegasusified(name, ds, device, *, steps: int, tiny: bool):
     if name == "rnn":
         m = rnn.train_rnn(tr["seq"], tr["label"], nc, steps=steps, device=device)
         peg = rnn.pegasusify_rnn(m, tr["seq"], depth=3 if tiny else 8)
-        return peg, lambda x: rnn.rnn_apply(m.params, x), (te["seq"],)
+        return peg, lambda x: rnn.rnn_apply(m.params, x), (te["seq"],), m
     if name in ("cnn_b", "cnn_m"):
         m = cnn.train_cnn(tr["seq"], tr["label"], nc, size=name[-1].upper(), steps=steps,
                           device=device)
         peg = cnn.pegasusify_cnn(m, tr["seq"], depth=4 if tiny else 12)
-        return peg, lambda x: cnn.cnn_apply(m, x), (te["seq"],)
+        return peg, lambda x: cnn.cnn_apply(m, x), (te["seq"],), m
     if name == "cnn_l":
         m = cnn.train_cnn_l(tr["seq"], tr["bytes"], tr["label"], nc, steps=steps,
                             device=device)
         peg = cnn.pegasusify_cnn_l(m, tr["seq"], tr["bytes"], enc_depth=3 if tiny else 8,
                                    index_bits=3 if tiny else 8)
-        return peg, lambda s, p: cnn.cnn_l_apply(m, s, p), (te["seq"], te["bytes"])
+        return peg, lambda s, p: cnn.cnn_l_apply(m, s, p), (te["seq"], te["bytes"]), m
     x = tr["seq"].reshape(len(tr["label"]), -1)
     m = ae.train_autoencoder(x, steps=steps, device=device)
     banks = ae.pegasusify_ae(m, x.astype(np.float32), depth=3 if tiny else 8)
     feats = ae.anomaly_features(te["seq"].reshape(len(te["label"]), -1)).numpy()
-    return banks, m, (feats,)
+    return banks, m, (feats,), m
 
 
 def _ae_aucs(ds, teacher, banks, device) -> dict:
@@ -626,13 +649,13 @@ def family_path(name, ds, device, *, steps: int, tiny: bool = False,
     from repro_torch.nets.common import macro_f1
 
     t0 = time.perf_counter()
-    model, teacher, inputs = _pegasusified(name, ds, device, steps=steps, tiny=tiny)
+    model, teacher, inputs, trained = _pegasusified(name, ds, device, steps=steps, tiny=tiny)
     _sync(device)
     build_s = time.perf_counter() - t0
     requests, tiled = _requests(name, inputs, n_serve)
     y = np.tile(ds.test["label"], -(-n_serve // len(ds.test["label"])))[:n_serve]
     res = dict(build_s=build_s, runs={}, requests=len(requests), model=model,
-               request_list=requests)
+               request_list=requests, teacher=trained, ds=ds)
     if name != "ae":
         with torch.no_grad():
             logits = teacher(*(torch.as_tensor(a, device=device) for a in tiled))
@@ -992,6 +1015,126 @@ def multi_model_phase(res, fams, device, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: backprop refinement, and the refined MLP-B through the kernels
+# ---------------------------------------------------------------------------
+
+
+def refinement_phase(res, fams, device, smi: str, *, baseline_steps: int = 900,
+                     cnn_m_steps: int = 20) -> dict:
+    """Phase 7: phase 4's MLP-B teacher pegasusified with the reference's
+    default refinement (``refine_steps=100``) on ``device``, timed (phase 4
+    timed the same call without refinement), with each bank's hard error
+    before and after; the refined banks served as phase 4 serves its banks
+    (:func:`serve_mlp`) under plans of their own; N3IC and BoS trained and
+    Leo fitted beside MLP-B and RNN-B (the paper's Table 5, printed, not
+    asserted); one refine of CNN-M's depth-12 window bank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.finetune import hard_mse, refine
+    from repro_torch.engine import STATS, plan_for
+    from repro_torch.nets import cnn
+    from repro_torch.nets import mlp as mlp_net
+    from repro_torch.nets.baselines import bos, leo, n3ic
+    from repro_torch.nets.common import macro_f1
+
+    ds, teacher, plain = res["ds"], res["teacher"], res["model"]
+    x_cal = ds.train["stats"].astype(np.float32)
+    _sync(device)
+    t0 = time.perf_counter()
+    banks = mlp_net.pegasusify_mlp(teacher, x_cal, depth=res["depth"])   # refine_steps=100
+    _sync(device)
+    refined_s, plain_s = time.perf_counter() - t0, res["peg_s"]
+    acts = mlp_net._activations(teacher, x_cal)
+    with torch.no_grad():
+        targets = acts[1:] + [mlp_net.mlp_apply(teacher, torch.as_tensor(x_cal, device=device))]
+    mse = [(hard_mse(a, acts[i], targets[i]), hard_mse(b, acts[i], targets[i]))
+           for i, (a, b) in enumerate(zip(plain, banks))]
+    for i, (a, b) in enumerate(zip(plain, banks)):
+        if b.lut.device.type != device.type:
+            raise AssertionError(f"bank {i} refined on {b.lut.device}, not on {device}")
+        if not torch.equal(a.trees.features, b.trees.features):
+            raise AssertionError(f"bank {i}: refinement did not start from the unrefined trees")
+        if torch.equal(a.lut, b.lut) or not torch.isfinite(b.lut).all():
+            raise AssertionError(f"bank {i}: refined LUT unchanged or not finite")
+    if not all(np.isfinite(m).all() for m in mse):
+        raise AssertionError(f"hard_mse not finite: {mse}")
+    log(f"  pegasusify_mlp(refine_steps=100) on {device}: {refined_s:.3f} s; phase 4's "
+        f"refine_steps=0: {plain_s:.3f} s; refinement {refined_s - plain_s:.3f} s "
+        f"(4 banks x 100 Adam steps, batch 512) on {smi}")
+    log("  per-bank hard_mse before -> after: " + ", ".join(
+        f"bank {i} {before:.6g} -> {after:.6g}" for i, (before, after) in enumerate(mse)))
+
+    builds = STATS.plan_builds
+    p_plain, p_refined = plan_for(plain, device=device), plan_for(banks, device=device)
+    if p_plain is p_refined or plan_for(plain, device=device) is not p_plain \
+            or STATS.plan_builds != builds + 2:
+        raise AssertionError(f"plan memo: {STATS.plan_builds - builds} builds for the "
+                             "unrefined and the refined banks (expected 2)")
+
+    reqs = res["request_list"]
+    served = serve_mlp(banks, reqs, res["x"], res["y"], ds.num_classes, device)
+    log("  refined against unrefined (phase 4's servers), flows/s in turns unrefined, "
+        "refined, refined, unrefined:")
+    for key, run in served["runs"].items():
+        old = res["runs"][key]["server"]
+        t = [_timed_serve(srv, reqs, device)[1] for srv in (old, run["server"],
+                                                           run["server"], old)]
+        run["in_turns"] = (2 * res["flows"] / (t[0] + t[3]), 2 * res["flows"] / (t[1] + t[2]))
+        log(f"    {key[0]:9s} fuse={key[1]!s:5s} unrefined {run['in_turns'][0]:.1f}, refined "
+            f"{run['in_turns'][1]:.1f} flows/s; served macro-F1 {run['f1']:.4f} (unrefined "
+            f"{res['runs'][key]['f1']:.4f}, teacher {res['teacher_f1']:.4f}) on {smi}")
+
+    tr, te, nc = ds.train, ds.test, ds.num_classes
+    f1 = {}
+    for name, model, test_x in (("MLP-B (refined)", banks, te["stats"].astype(np.float32)),
+                                ("MLP-B (unrefined)", plain, te["stats"].astype(np.float32)),
+                                ("RNN-B", fams["rnn"]["model"], te["seq"])):
+        pred = plan_for(model, device=device)(test_x, backend="kernel").argmax(-1).cpu().numpy()
+        f1[name] = macro_f1(pred, te["label"], nc)
+    t0 = time.perf_counter()
+    n3 = n3ic.train_n3ic(tr["stats"], tr["label"], nc, steps=baseline_steps, device=device)
+    bs = bos.train_bos(tr["seq"], tr["label"], nc, steps=baseline_steps, device=device)
+    _sync(device)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = leo.train_leo(tr["stats"], tr["label"], nc, max_nodes=1024)
+    leo_s = time.perf_counter() - t0
+    with torch.no_grad():
+        f1["N3IC"] = macro_f1(n3ic.n3ic_apply(n3, te["stats"]).argmax(-1).cpu().numpy(),
+                              te["label"], nc)
+        f1["BoS"] = macro_f1(bos.bos_apply(bs, te["seq"]).argmax(-1).cpu().numpy(),
+                             te["label"], nc)
+    f1["Leo"] = macro_f1(leo.leo_predict(tree, te["stats"]), te["label"], nc)
+    log(f"  Table 5 (test macro-F1, {len(te['label'])} flows): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in f1.items())
+        + f"; N3IC + BoS trained {baseline_steps} steps each on {device} in {train_s:.2f} s, "
+        f"Leo fitted ({tree.node_count} nodes) in {leo_s:.2f} s")
+
+    cnn_m = fams["cnn_m"]
+    win = cnn_m["model"].window_bank
+    flat, target = cnn.nam_window_targets(cnn_m["teacher"], cnn_m["ds"].train["seq"])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = hard_mse(win, flat, target)
+    _sync(device)
+    t0 = time.perf_counter()
+    refined_win = refine(win, flat, target, steps=cnn_m_steps)
+    _sync(device)
+    cnn_s = time.perf_counter() - t0
+    after = hard_mse(refined_win, flat, target)
+    if not (np.isfinite(after) and torch.isfinite(refined_win.lut).all()):
+        raise AssertionError(f"CNN-M window bank refine: hard_mse {after}")
+    peak = (f", peak card memory allocated {torch.cuda.max_memory_allocated()} B"
+            if device.type == "cuda" else "")
+    geom = (win.num_groups, win.group_size, win.num_centroids, win.out_features)
+    log(f"  CNN-M window bank (K, v, C, N) {geom}: refine {cnn_m_steps} steps on {len(flat)} "
+        f"windows in {cnn_s:.3f} s, hard_mse {before:.6g} -> {after:.6g}{peak} on {smi}")
+    return dict(launches=served["launches"], runs=served["runs"], mse=mse, f1=f1,
+                refine_s=refined_s - plain_s, cnn_m=(before, after, cnn_s))
+
+
 def profile_window(server, requests, **kw) -> dict | None:
     """``torch.profiler`` over one served run of ``server`` (``kw`` goes to
     ``serve``): device time by kernel name and the device's idle share over
@@ -1056,6 +1199,8 @@ def main(argv=None) -> int:
         check_family_kernels(device, rows=64, time_it=False)
         fams = families_phase(device, flows_per_class=48, steps=5, tiny=True, n_serve=300)
         multi_model_phase(res, fams, device, "the CPU (rehearsal)")
+        refinement_phase(res, fams, device, "the CPU (rehearsal)", baseline_steps=5,
+                         cnn_m_steps=3)
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -1133,11 +1278,14 @@ def main(argv=None) -> int:
     log("many models behind one server:")
     multi = multi_model_phase(res, fams, device, smi)
 
+    log("refinement:")
+    refined = refinement_phase(res, fams, device, smi)
+
     lines = []
     for name, source, replaces in KERNELS:
         rec = checks[name]
         launches = (res["launches"][name] + sum(f["launches"][name] for f in fams.values())
-                    + multi["launches"][name])
+                    + multi["launches"][name] + refined["launches"][name])
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],

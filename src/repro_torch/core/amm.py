@@ -6,12 +6,14 @@ Weighted Aggregation (paper §5) decomposes ``y = x @ W + b`` as Partition
 (``Σ_k``, ``+ b``). The multiplications happen offline when the LUT is
 built; inference is comparisons, lookups and adds.
 
-Two plain apply paths live here; the hand-written CUDA kernels are in
-:mod:`repro_torch.kernels.fuzzy_lut`:
+Three plain apply paths live here; the hand-written CUDA kernels are in
+:mod:`repro_torch.kernels.fuzzy_lut` (``pegasus_linear_apply`` reaches them
+as paths ``kernel`` and ``kernel_q8``):
   * ``apply_gather`` — descent + row gather + ascending-k sum (the oracle
     order, see :mod:`repro_torch.kernels.fuzzy_lut.ref`),
   * ``apply_onehot`` — one-hot × LUT as one fp32 matmul (TF32 is switched
-    off where the engine builds its plans).
+    off where the engine builds its plans),
+  * ``apply_soft`` — the differentiable path of backprop refinement.
 """
 
 from __future__ import annotations
@@ -23,14 +25,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.fuzzy_lut import ops
 from repro_torch.kernels.fuzzy_lut.ref import lut_gather_sum
 
-from .fuzzy_tree import FuzzyTree, fit_tree, hard_index_stacked, stack_trees
+from .fuzzy_tree import FuzzyTree, fit_tree, hard_index_stacked, soft_index_stacked, stack_trees
 from .lut import build_matmul_lut
 from .quantization import choose_qspec, fake_quant_spec
 
 __all__ = ["PegasusLinear", "init_pegasus_linear", "init_pegasus_bank", "apply_gather",
-           "apply_onehot"]
+           "apply_onehot", "apply_soft", "pegasus_linear_apply", "dense_reference"]
 
 
 @dataclasses.dataclass
@@ -75,6 +78,14 @@ class PegasusLinear:
             trees=self.trees.to(device), lut=self.lut.to(device),
             bias=None if self.bias is None else self.bias.to(device),
             group_size=self.group_size)
+
+    def compile(self, *, backend: str = "onehot", **kw):
+        """This layer as a single-bank ExecutionPlan (``repro_torch.engine``)
+        on its own device unless ``device=`` says otherwise: kernel layouts
+        and the int8 LUT built once, the backend bound."""
+        from repro_torch.engine import build_plan
+
+        return build_plan(self, backend=backend, **{"device": self.device, **kw})
 
 
 def init_pegasus_linear(
@@ -186,3 +197,39 @@ def apply_onehot(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
     if p.bias is not None:
         y = y + p.bias
     return y
+
+
+def apply_soft(p: PegasusLinear, x: torch.Tensor, temperature: float = 0.1) -> torch.Tensor:
+    """Differentiable path for backprop refinement (paper §4.4): the soft
+    leaf distributions ``[..., K, C]`` contracted with the LUT in fp32."""
+    xg = _group(x.to(torch.float32), p.num_groups, p.group_size)
+    probs = soft_index_stacked(p.trees, xg, temperature)
+    y = torch.einsum("...kc,kcn->...n", probs, p.lut.to(torch.float32))
+    if p.bias is not None:
+        y = y + p.bias
+    return y
+
+
+def pegasus_linear_apply(p: PegasusLinear, x: torch.Tensor, *,
+                         path: str = "onehot") -> torch.Tensor:
+    """Apply one layer on ``path``: ``gather``, ``onehot``, ``soft``, or the
+    CUDA kernels ``kernel`` (f32 LUT) and ``kernel_q8`` (int8 LUT), which
+    run their plain versions on CPU tensors."""
+    if path == "gather":
+        return apply_gather(p, x)
+    if path == "onehot":
+        return apply_onehot(p, x)
+    if path == "soft":
+        return apply_soft(p, x)
+    if path == "kernel":
+        return ops.fuzzy_lut_matmul(p, x)
+    if path == "kernel_q8":
+        return ops.fuzzy_lut_matmul_q8(p, x)
+    raise ValueError(f"unknown path {path}")
+
+
+def dense_reference(weight: torch.Tensor, bias: torch.Tensor | None,
+                    x: torch.Tensor) -> torch.Tensor:
+    """The dense layer ``x @ W (+ b)`` a PegasusLinear approximates."""
+    y = x @ weight
+    return y if bias is None else y + bias

@@ -8,7 +8,9 @@ threshold[n])`` and the descent goes right iff ``x[feature] > threshold``
 
 ``fit_tree`` and its helpers stay numpy, copied from the reference, so the
 port fits bit-identical trees from the same calibration data. The descent
-returns leaf indices as int64, torch's index type.
+returns leaf indices as int64, torch's index type. ``soft_index`` relaxes
+each split to a sigmoid so that backprop refinement (``core.finetune``)
+can move the thresholds (paper §4.4 "Backpropagation").
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from repro_torch.kernels.fuzzy_lut.ref import tree_descent_ref
 
 __all__ = ["FuzzyTree", "fit_tree", "stack_trees", "hard_index",
-           "hard_index_stacked"]
+           "hard_index_stacked", "soft_index", "soft_index_stacked", "leaf_one_hot"]
 
 
 @dataclasses.dataclass
@@ -177,3 +179,51 @@ def hard_index(tree: FuzzyTree, x: torch.Tensor) -> torch.Tensor:
 def hard_index_stacked(stacked: FuzzyTree, x: torch.Tensor) -> torch.Tensor:
     """Index with K stacked trees. ``x: [..., K, v]`` → ``[..., K]`` int64."""
     return tree_descent_ref(x, stacked.features, stacked.thresholds)
+
+
+def leaf_one_hot(tree: FuzzyTree, x: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Hard one-hot leaf encoding ``[..., 2**depth]``."""
+    return torch.nn.functional.one_hot(hard_index(tree, x), tree.num_leaves).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable descent (backprop refinement)
+# ---------------------------------------------------------------------------
+
+
+def soft_index_stacked(stacked: FuzzyTree, x: torch.Tensor,
+                       temperature: float = 1.0) -> torch.Tensor:
+    """Soft leaf distributions of K stacked trees: ``x [..., K, v]`` →
+    ``[..., K, 2**depth]``.
+
+    Each split relaxes to ``p_right = sigmoid((x[f] - t) / temperature)``
+    and a leaf's probability is the product along its path; as the
+    temperature goes to 0 this tends to the hard one-hot. Level by level,
+    one gather reads the level's split values for all K trees. A node with
+    a non-finite threshold (a degenerate ``+inf`` split) always goes left,
+    and its threshold gets a zero gradient.
+    """
+    k, n_internal = stacked.features.shape
+    feats = stacked.features.long()
+    lead = x.shape[:-2]
+    level_probs = torch.ones(*lead, k, 1, dtype=x.dtype, device=x.device)
+    base, n_nodes = 0, 1
+    while base < n_internal:
+        feat = feats[:, base : base + n_nodes]                  # [K, n]
+        thr = stacked.thresholds[:, base : base + n_nodes]      # [K, n]
+        vals = torch.gather(x, -1, feat.expand(*lead, k, n_nodes))
+        p_right = torch.sigmoid((vals - thr) / temperature)
+        p_right = torch.where(torch.isfinite(thr), p_right, torch.zeros_like(p_right))
+        # children in heap order: [L0, R0, L1, R1, ...]
+        level_probs = torch.stack([level_probs * (1.0 - p_right), level_probs * p_right],
+                                  dim=-1).reshape(*lead, k, 2 * n_nodes)
+        base, n_nodes = base + n_nodes, 2 * n_nodes
+    return level_probs
+
+
+def soft_index(tree: FuzzyTree, x: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """Differentiable leaf distribution of one tree: ``x [..., v]`` →
+    ``[..., 2**depth]`` (see :func:`soft_index_stacked`)."""
+    one = FuzzyTree(tree.features[None], tree.thresholds[None], tree.centroids[None])
+    return soft_index_stacked(one, x.unsqueeze(-2), temperature).squeeze(-2)

@@ -1,10 +1,10 @@
-"""Adaptive fixed-point quantization (paper §4.4), forward functions.
+"""Adaptive fixed-point quantization (paper §4.4).
 
 Port of ``repro.core.quantization``: the dataplane has no floats, so every
 value crossing a table boundary is a fixed-point integer with a per-edge
-binary point chosen from calibration data. The straight-through gradient
-of the reference's ``fake_quant`` belongs to the refinement slice; here
-``fake_quant_spec`` is the plain quantize-dequantize.
+binary point chosen from calibration data. ``fake_quant`` carries a
+clipped straight-through gradient so that backprop refinement can
+differentiate through it.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 __all__ = ["FixedPointSpec", "choose_qspec", "quantize", "dequantize",
-           "fake_quant_spec"]
+           "fake_quant", "fake_quant_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +60,29 @@ def dequantize(q: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:
     return q.to(torch.float32) / spec.scale
 
 
+class _FakeQuant(torch.autograd.Function):
+    """Quantize-dequantize; the gradient passes where ``x·scale`` lies in
+    ``[qmin, qmax]`` and is zero outside (clipped straight-through)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, qmin, qmax):
+        ctx.save_for_backward(x)
+        ctx.bounds = (scale, qmin, qmax)
+        return torch.clamp(torch.round(x * scale), qmin, qmax) / scale
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        scale, qmin, qmax = ctx.bounds
+        inside = (x * scale >= qmin) & (x * scale <= qmax)
+        return torch.where(inside, g, torch.zeros_like(g)), None, None, None
+
+
+def fake_quant(x: torch.Tensor, scale: float, qmin: float, qmax: float) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient."""
+    return _FakeQuant.apply(x, scale, qmin, qmax)
+
+
 def fake_quant_spec(x: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:
     """Quantize-dequantize onto the fixed-point grid of ``spec``."""
-    return torch.clamp(torch.round(x * spec.scale), spec.qmin, spec.qmax) / spec.scale
+    return fake_quant(x, spec.scale, float(spec.qmin), float(spec.qmax))

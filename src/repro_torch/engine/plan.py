@@ -664,6 +664,8 @@ class ExecutionPlan:
             # the sharded width: 1 until the sharded mode is ported
             # (placed calls don't change it)
             "devices": 1,
+            # plan-audit finding counts: None until the plan audit is ported
+            "audit": None,
         }
 
     @property

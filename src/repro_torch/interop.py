@@ -16,6 +16,9 @@ from repro_torch.core.fuzzy_tree import FuzzyTree
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fuzzy_lut.ops import check_features
 from repro_torch.nets.autoencoder import AEBanks, AutoEncoder
+from repro_torch.nets.baselines.bos import BoS
+from repro_torch.nets.baselines.leo import LeoTree, _Node
+from repro_torch.nets.baselines.n3ic import N3IC
 from repro_torch.nets.cnn import CNNL, CNNModel, PegasusCNN, PegasusCNNL
 from repro_torch.nets.mlp import MLPB
 from repro_torch.nets.rnn import RNNB, PegasusRNN
@@ -23,7 +26,8 @@ from repro_torch.nets.rnn import RNNB, PegasusRNN
 __all__ = ["pegasus_linear_from_arrays", "banks_from_arrays", "mlp_from_arrays",
            "rnn_from_arrays", "cnn_from_arrays", "cnn_l_from_arrays",
            "ae_banks_from_arrays", "rnn_teacher_from_arrays", "cnn_teacher_from_arrays",
-           "cnn_l_teacher_from_arrays", "ae_from_arrays"]
+           "cnn_l_teacher_from_arrays", "ae_from_arrays", "n3ic_from_arrays",
+           "bos_from_arrays", "leo_from_arrays"]
 
 
 def _t(a, dtype, dev) -> torch.Tensor:
@@ -145,3 +149,30 @@ def ae_from_arrays(params: dict, feat_mu, feat_sigma,
     return AutoEncoder(params=p, in_dim=p["w_e1"].shape[0],
                        feat_mu=np.asarray(feat_mu, np.float32),
                        feat_sigma=np.asarray(feat_sigma, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The baselines
+# ---------------------------------------------------------------------------
+
+
+def n3ic_from_arrays(params: dict, mu, sigma, num_classes: int,
+                     device: str | torch.device = "cuda") -> N3IC:
+    """A trained N3IC: weights ``w0``-``w2`` and the input thresholds."""
+    dev = resolve_device(device)
+    return N3IC(params=_params(params, dev), num_classes=int(num_classes),
+                mu=_t(mu, np.float32, dev), sigma=_t(sigma, np.float32, dev))
+
+
+def bos_from_arrays(params: dict, num_classes: int,
+                    device: str | torch.device = "cuda") -> BoS:
+    """A trained BoS: ``w_x``, ``w_h``, ``b`` and ``w_o``."""
+    return BoS(params=_params(params, resolve_device(device)), num_classes=int(num_classes))
+
+
+def leo_from_arrays(feature, threshold, left, right, label, num_classes: int) -> LeoTree:
+    """A Leo tree from per-node arrays (``left == -1`` marks a leaf)."""
+    nodes = [_Node(feature=int(f), threshold=float(t), left=int(lo), right=int(r),
+                   label=int(lab))
+             for f, t, lo, r, lab in zip(feature, threshold, left, right, label)]
+    return LeoTree(nodes=nodes, num_classes=int(num_classes))

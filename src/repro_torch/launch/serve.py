@@ -206,7 +206,9 @@ class PegasusServer:
         self.flows_served = 0
 
     def stats(self) -> dict:
-        """Serving counters + the plan's build and dispatch stats."""
+        """Serving counters + the plan's build and dispatch stats, in the
+        schema all three servers share: ``scheduler``, ``slo`` and
+        ``health`` are empty here (one plan, no queue, no breakers)."""
         return {
             "backend": self.backend,
             "serving": {
@@ -221,6 +223,11 @@ class PegasusServer:
                 "table_bytes": self.plan.table_bytes(),
                 **self.plan.compile_stats(),
             },
+            "scheduler": {},
+            "slo": {},
+            "devices": {"count": 1, "per_device": []},
+            "health": {"models": {}, "degraded_models": [],
+                       "chaos": {"installed": False}},
         }
 
     def infer(self, *inputs, backend: str | None = None) -> torch.Tensor:

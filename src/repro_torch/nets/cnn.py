@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.amm import PegasusLinear, init_pegasus_bank, init_pegasus_linear
+from repro_torch.core.finetune import refine
 from repro_torch.core.fuzzy_tree import FuzzyTree, fit_tree
 from repro_torch.device import resolve_device
 from repro_torch.engine import plan_for
@@ -30,7 +31,7 @@ from .common import train_classifier
 
 __all__ = [
     "CNNModel", "PegasusCNN", "init_cnn", "train_cnn", "cnn_apply",
-    "pegasusify_cnn", "pegasus_cnn_apply",
+    "pegasusify_cnn", "pegasus_cnn_apply", "nam_window_targets",
     "CNNL", "PegasusCNNL", "init_cnn_l", "train_cnn_l", "cnn_l_apply",
     "pegasusify_cnn_l", "pegasus_cnn_l_apply",
 ]
@@ -115,15 +116,34 @@ class PegasusCNN:
     pool_windows: int
 
 
+def _nam_submodel(p: dict, n_pool: int):
+    """CNN-M's per-window sub-model — conv, ReLU, FC, ReLU, its share of the
+    average pool, FC head — on windows ``[..., 6]`` (centroids included)."""
+    def submodel(c):
+        h = torch.relu(c / 255.0 @ p["w_conv"] + p["b_conv"])
+        return torch.relu(h @ p["w_h"] + p["b_h"]) / n_pool @ p["w_o"]
+
+    return submodel
+
+
+def nam_window_targets(m: CNNModel, x_calib: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
+    """CNN-M's window-bank calibration: the windows ``[B·P, 6]`` (numpy) and
+    the teacher's per-window output ``[B·P, classes]`` on its device, the
+    target ``refine`` holds the window bank to."""
+    p = {k: v.detach() for k, v in m.params.items()}
+    win = _windows(torch.as_tensor(x_calib.astype(np.float32)))
+    flat = win.reshape(-1, KERNEL * 2).numpy()
+    with torch.no_grad():
+        target = _nam_submodel(p, win.shape[1])(torch.as_tensor(flat, device=p["w_o"].device))
+    return flat, target
+
+
 def pegasusify_cnn(m: CNNModel, x_calib: np.ndarray, *, depth: int = 12,
                    refine_steps: int = 0) -> PegasusCNN:
     """Lower CNN-B (window bank + two head banks) or CNN-M (one NAM window
-    bank) on the teacher's device. ``refine_steps > 0`` belongs to the
-    refinement slice of the port and raises ``NotImplementedError``."""
-    if refine_steps:
-        raise NotImplementedError(
-            "refine_steps > 0 needs core.finetune.refine, which the port "
-            "adds in its refinement slice; pass refine_steps=0")
+    bank) on the teacher's device. ``refine_steps > 0`` refines CNN-M's
+    window bank against the per-window NAM sub-model; CNN-B has no
+    refinement hook (as in the reference)."""
     p = {k: v.detach() for k, v in m.params.items()}
     dev = p["w_conv"].device
     win = _windows(torch.as_tensor(x_calib.astype(np.float32)))
@@ -134,15 +154,13 @@ def pegasusify_cnn(m: CNNModel, x_calib: np.ndarray, *, depth: int = 12,
         return torch.relu(c / 255.0 @ p["w_conv"] + p["b_conv"])
 
     if m.size == "M":
-        # NAM (Advanced Fusion ③): the per-window sub-model — conv, ReLU, FC,
-        # ReLU, FC head — folds into ONE lookup; only the final SumReduce
-        # over windows survives.
-        def submodel(c):                                      # [1, C, 6] → [1, C, classes]
-            h = torch.relu(conv(c) @ p["w_h"] + p["b_h"]) / n_pool
-            return h @ p["w_o"]
-
+        # NAM (Advanced Fusion ③): the per-window sub-model folds into ONE
+        # lookup; only the final SumReduce over windows survives.
+        submodel = _nam_submodel(p, n_pool)
         bank = init_pegasus_bank(submodel, flat, group_size=KERNEL * 2, depth=depth,
                                  device=dev)
+        if refine_steps:
+            bank = refine(bank, *nam_window_targets(m, x_calib), steps=refine_steps)
         return PegasusCNN(window_bank=bank, head_banks=[], out_bias=p["b_o"],
                           nam=True, pool_windows=n_pool)
 

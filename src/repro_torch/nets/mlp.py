@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.amm import PegasusLinear, init_pegasus_linear
+from repro_torch.core.finetune import refine
 from repro_torch.device import resolve_device
 from repro_torch.engine import plan_for
 
@@ -115,14 +116,10 @@ def pegasusify_mlp(
     Bank i: idx on pre-act i;       LUT = (BNi affine ∘ ReLU)(c) @ Wi + bi.
     Bank 3: classifier;             LUT = ReLU(c) @ W_out + b_out.
 
-    ``refine_steps > 0`` (backprop refinement through the soft index)
-    belongs to the refinement slice of the port and raises
-    ``NotImplementedError`` here.
+    ``refine_steps > 0`` then refines each bank (``core.finetune.refine``)
+    against the next bank's calibration input, the last one against the
+    teacher's logits.
     """
-    if refine_steps:
-        raise NotImplementedError(
-            "refine_steps > 0 needs core.finetune.refine, which the port "
-            "adds in its refinement slice; pass refine_steps=0")
     p, mu, sigma = bundle.params, bundle.mu, bundle.sigma
     dev = mu.device
     acts = _activations(bundle, x_calib)
@@ -152,6 +149,13 @@ def pegasusify_mlp(
                            lambda c, aff=aff: aff(torch.clamp(c, min=0.0))))
     layers.append(bank(np_p["w_out"], np_p["b_out"], acts[3],
                        lambda c: torch.clamp(c, min=0.0)))
+
+    if refine_steps:
+        with torch.no_grad():
+            logits = mlp_apply(bundle, torch.as_tensor(acts[0], device=dev))
+        targets = acts[1:] + [logits]
+        layers = [refine(layer, acts[i], targets[i], steps=refine_steps)
+                  for i, layer in enumerate(layers)]
     return layers
 
 

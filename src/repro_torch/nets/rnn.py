@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.amm import PegasusLinear, init_pegasus_linear
+from repro_torch.core.finetune import refine
 from repro_torch.device import resolve_device
 from repro_torch.engine import plan_for
 
@@ -105,13 +106,9 @@ def pegasusify_rnn(
 ) -> PegasusRNN:
     """Lower the trained RNN to per-step banks on the teacher's device.
 
-    ``refine_steps > 0`` belongs to the refinement slice of the port and
-    raises ``NotImplementedError`` here.
+    ``refine_steps > 0`` refines each h-bank against the teacher's next
+    pre-activation less the step input's share, ``pre_t - x_t @ W_x/255``.
     """
-    if refine_steps:
-        raise NotImplementedError(
-            "refine_steps > 0 needs core.finetune.refine, which the port "
-            "adds in its refinement slice; pass refine_steps=0")
     p = bundle.params
     dev = p["w_x"].device
     np_p = {k: v.detach().cpu().numpy() for k, v in p.items()}
@@ -132,6 +129,14 @@ def pegasusify_rnn(
             # recurrent bank: index on h_pre_{t-1}, fold tanh + bias
             h_banks.append(bank(np_p["w_h"], np_p["b"], pres[t - 1], h_group, torch.tanh))
     out_bank = bank(np_p["w_o"], np_p["b_o"], pres[-1], h_group, torch.tanh)
+
+    if refine_steps:
+        w_x = p["w_x"].detach() * scale
+        for t in range(1, bundle.window):
+            x_t = torch.as_tensor(x_calib[:, t], dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                tgt = torch.as_tensor(pres[t], device=dev) - x_t @ w_x
+            h_banks[t - 1] = refine(h_banks[t - 1], pres[t - 1], tgt, steps=refine_steps)
     return PegasusRNN(x_banks=x_banks, h_banks=h_banks, out_bank=out_bank,
                       window=bundle.window)
 

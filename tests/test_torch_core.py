@@ -196,10 +196,17 @@ def test_mlp_forward_matches_reference_teacher():
 
 
 def test_pegasusify_refine_waits_for_later_slice():
+    """``refine_steps > 0`` refines the banks (it raised before refinement
+    was ported): same trees' structure, new thresholds, LUT and bias."""
     params = mlp.init_mlp(16, 3, device="cpu")
     bundle = mlp.MLPB(params, torch.zeros(16), torch.ones(16), 3)
-    with pytest.raises(NotImplementedError, match="refine"):
-        mlp.pegasusify_mlp(bundle, np.zeros((8, 16), np.float32), refine_steps=5)
+    x = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
+    plain = mlp.pegasusify_mlp(bundle, x, depth=2, refine_steps=0)
+    refined = mlp.pegasusify_mlp(bundle, x, depth=2, refine_steps=5)
+    for a, b in zip(plain, refined):
+        assert torch.equal(a.trees.features, b.trees.features)
+        assert not torch.equal(a.lut, b.lut) and torch.isfinite(b.lut).all()
+        assert b.lut.dtype == a.lut.dtype and b.bias is not None
 
 
 def test_port_imports_no_jax():
@@ -216,7 +223,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for n in ('engine.registry', 'nets.rnn', 'nets.cnn', 'nets.autoencoder',\n"
         "          'analysis.sanitizer', 'launch.health', 'launch.scheduler',\n"
-        "          'launch.chaos', 'launch.devices', 'launch.serve'):\n"
+        "          'launch.chaos', 'launch.devices', 'launch.serve', 'core.finetune',\n"
+        "          'core.primitives', 'core.syntax', 'core.fusion',\n"
+        "          'nets.baselines.n3ic', 'nets.baselines.bos', 'nets.baselines.leo'):\n"
         "    assert 'repro_torch.' + n in sys.modules, n\n"
         "serve = sys.modules['repro_torch.launch.serve']\n"
         "assert serve.MultiModelServer and serve.AsyncMultiModelServer\n"
@@ -224,7 +233,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 24
+    assert int(out.stdout.strip()) >= 32
 
 
 def test_no_silent_cpu():

@@ -325,7 +325,7 @@ def _graph_model(family, dev):
             model = pegasusify_mlp(m, stats, depth=4, refine_steps=0)
             inputs = (ds.test["stats"].astype(np.float32),)
         else:
-            model, _, inputs = smoke._pegasusified(family, ds, dev, steps=30, tiny=True)
+            model, _, inputs, _ = smoke._pegasusified(family, ds, dev, steps=30, tiny=True)
         _GRAPH_MODELS[family] = (model, inputs)
     return _GRAPH_MODELS[family]
 
@@ -438,3 +438,88 @@ def test_graph_replays_of_one_pool_do_not_interleave(dev, family):
     for (tag, rep, b, i), y in got.items():
         assert torch.equal(y, want[(b, i)]), (tag, rep, b, i)
     assert {bk for _, bk in plan.compiled_buckets} == {8, 1024, 4096}
+
+
+# ---------------------------------------------------------------------------
+# Backprop refinement on the card
+# ---------------------------------------------------------------------------
+
+
+def _drift_layer(device):
+    """A depth-4 bank whose trees were fit on drifted data (the drift
+    scenario of tests/test_core.py) and the true data's linear teacher."""
+    from repro_torch.core.amm import init_pegasus_linear
+
+    rng = np.random.default_rng(17)
+    w = (rng.normal(size=(16, 8)) / 4.0).astype(np.float32)
+    b = rng.normal(size=(8,)).astype(np.float32)
+    stale = (rng.normal(size=(1024, 16)) * 2.0 + 1.5).astype(np.float32)
+    true = rng.normal(size=(1024, 16)).astype(np.float32)
+    layer = init_pegasus_linear(w, b, stale, group_size=4, depth=4, lut_bits=None,
+                                device=device)
+    return layer, true, true @ w + b
+
+
+def test_refine_on_card_matches_cpu(dev, monkeypatch):
+    """``refine`` on the card against ``refine`` on the CPU, both on the CPU
+    generator's minibatches: thresholds, LUT and bias within 1e-4 after 20
+    steps, and the card's hard error below the unrefined one."""
+    from repro_torch.core import finetune
+
+    draw = finetune._batch_indices
+    monkeypatch.setattr(finetune, "_batch_indices",
+                        lambda n, size, steps, seed, device: draw(
+                            n, size, steps, seed, torch.device("cpu")).to(device))
+    cpu_layer, x, y = _drift_layer("cpu")
+    card_layer = cpu_layer.to(dev)
+    want = finetune.refine(cpu_layer, x, y, steps=20)
+    got = finetune.refine(card_layer, x, y, steps=20)
+    assert got.lut.device.type == "cuda" and got.bias.device.type == "cuda"
+    pairs = {"thresholds": (got.trees.thresholds, want.trees.thresholds),
+             "lut": (got.lut, want.lut), "bias": (got.bias, want.bias)}
+    print("refine card vs CPU, max |diff| after 20 steps: " + ", ".join(
+        f"{name} {float((a.cpu() - b).nan_to_num().abs().max()):.3g}"
+        for name, (a, b) in pairs.items()))
+    for a, b in pairs.values():
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert finetune.hard_mse(got, x, y) < finetune.hard_mse(card_layer, x, y)
+
+
+def test_refined_mlp_kernel_equals_gather(dev):
+    """MLP-B trained a few steps on the card and pegasusified with its
+    default refinement at the published geometry (v=2, depth 6): fused and
+    unfused ``kernel`` bit-equal to ``gather``, through the expected kernel."""
+    from repro_torch.data.synthetic_traffic import make_dataset
+    from repro_torch.engine import build_plan
+    from repro_torch.nets import mlp
+
+    ds = make_dataset("peerrush", flows_per_class=200)
+    m = mlp.train_mlp(ds.train["stats"], ds.train["label"], 3, steps=50, device=dev)
+    banks = mlp.pegasusify_mlp(m, ds.train["stats"].astype(np.float32))
+    assert [b.lut.device.type for b in banks] == ["cuda"] * 4
+    x = ds.test["stats"].astype(np.float32)
+    for fuse, name, n in ((True, "fuzzy_lut_stack", 1), (False, "fuzzy_lut", 4)):
+        plan = build_plan(banks, fuse=fuse, device=dev)
+        ref = plan(x, backend="gather", jit=False)
+        _lib.reset_launches()
+        out = plan(x, backend="kernel", jit=False)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in _lib.LAUNCHES.items() if c} == {name: n}
+        assert torch.equal(out, ref)
+
+
+def test_pegasus_linear_apply_kernel_launches(dev):
+    """``pegasus_linear_apply(path="kernel")`` on a card tensor launches the
+    f32 bank kernel (``kernel_q8`` the int8 one) and equals ``gather``."""
+    from repro_torch.core.amm import pegasus_linear_apply
+
+    layer, x, _ = _drift_layer(dev)
+    xt = torch.as_tensor(x[:300], device=dev)
+    ref = pegasus_linear_apply(layer, xt, path="gather")
+    for path, name in (("kernel", "fuzzy_lut"), ("kernel_q8", "fuzzy_lut_q8")):
+        _lib.reset_launches()
+        out = pegasus_linear_apply(layer, xt, path=path)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in _lib.LAUNCHES.items() if c} == {name: 1}, path
+        if path == "kernel":
+            assert torch.equal(out, ref)

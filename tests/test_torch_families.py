@@ -337,13 +337,29 @@ def test_server_serves_two_input_cnn_l(ds):
 
 @pytest.mark.parametrize("family", ["rnn", "cnn_m"])
 def test_refine_waits_for_later_slice(ds, family):
+    """``refine_steps > 0`` (it raised before refinement was ported) refines
+    the RNN's h-banks and CNN-M's window bank and nothing else."""
     f = _family(ds, family)
     teacher = (interop.rnn_teacher_from_arrays(_np(f["teacher"].params), 3, 8, "cpu")
                if family == "rnn" else
                interop.cnn_teacher_from_arrays(_np(f["teacher"].params), 3, "M", "cpu"))
     peg = rnn.pegasusify_rnn if family == "rnn" else cnn.pegasusify_cnn
-    with pytest.raises(NotImplementedError, match="refine"):
-        peg(teacher, ds.train["seq"], refine_steps=3)
+    depth = 4 if family == "rnn" else 5
+    plain = peg(teacher, ds.train["seq"], depth=depth, refine_steps=0)
+    refined = peg(teacher, ds.train["seq"], depth=depth, refine_steps=3)
+    if family == "rnn":
+        same = plain.x_banks + [plain.out_bank], refined.x_banks + [refined.out_bank]
+        moved = plain.h_banks, refined.h_banks
+    else:
+        same, moved = ([], []), ([plain.window_bank], [refined.window_bank])
+    for a, b in zip(*same):
+        assert torch.equal(a.lut, b.lut) and torch.equal(a.trees.thresholds, b.trees.thresholds)
+    assert len(moved[0]) == (7 if family == "rnn" else 1)
+    for a, b in zip(*moved):
+        assert torch.equal(a.trees.features, b.trees.features)
+        assert not torch.equal(a.lut, b.lut) and torch.isfinite(b.lut).all()
+    out = build_plan(refined, device="cpu")(ds.test["seq"][:BATCH], backend="kernel")
+    assert out.shape == (BATCH, 3) and torch.isfinite(out).all()
 
 
 def test_build_plan_rejects_unknown_structures():

@@ -109,7 +109,7 @@ def test_compile_stats_schema_and_first_uses(ref):
     assert st["traces"] == 3 and st["jit_calls"] == 4 and st["bucket_hits"] == 1
     assert st["buckets"] == [("gather", 8), ("kernel", 8), ("kernel", 16)]
     for key in ("traces", "jit_calls", "bucket_hits", "buckets", "pad_waste",
-                "pad_waste_fused", "fused_groups", "fused_banks", "devices"):
+                "pad_waste_fused", "fused_groups", "fused_banks", "devices", "audit"):
         assert st[key] == jst[key], key
 
 

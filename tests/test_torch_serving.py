@@ -412,3 +412,49 @@ def test_chip_smoke_multi_model_rehearsal():
     for backend in ("kernel", "kernel_q8"):
         assert set(out[backend]["out"]) == set(smoke.MODELS)
     assert out["health"]["state"] == "closed" and out["health"]["fallback_batches"] >= 1
+
+
+def _key_paths(d, prefix=()) -> set:
+    """Every nested key of a stats dict as a path tuple. ``audit`` is a
+    leaf: the port has no plan audit yet (None), while the reference's
+    PegasusServer always audits and reports finding counts there."""
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + (k,))
+        if isinstance(v, dict) and k != "audit":
+            out |= _key_paths(v, prefix + (k,))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["pegasus", "multi", "async"])
+def test_stats_schema_matches_reference(models, kind):
+    """All three servers report the reference's nested ``stats()`` keys
+    (docs/SERVING.md: one schema, empty sections where a server has
+    nothing to say) after the same traffic."""
+    from repro.launch.serve import AsyncMultiModelServer as JaxAsyncMultiModelServer
+    from repro.launch.serve import PegasusServer as JaxPegasusServer
+
+    if kind == "pegasus":
+        ref_srv = JaxPegasusServer(models["ref"]["mlp"], backend="kernel")
+        ref_srv.serve([JaxRequest("mlp", jnp.asarray(models["src"]["mlp"][:5]))])
+        srv = PegasusServer(models["port"]["mlp"], backend="kernel", device="cpu")
+        srv.serve([InferRequest("mlp", models["src"]["mlp"][:5])])
+        assert srv.stats()["engine"]["audit"] is None
+    else:
+        cls = (JaxMultiModelServer, MultiModelServer) if kind == "multi" else \
+            (JaxAsyncMultiModelServer, AsyncMultiModelServer)
+        ref_srv = cls[0](backend="kernel", **SERVER_KW)
+        for name, model in models["ref"].items():
+            ref_srv.add_model(name, model, priority=PRIORITY[name], audit="off", **BUILD_KW)
+        srv = _port_server(models, cls[1])
+        ref_reqs = [JaxRequest(n, jnp.asarray(x), priority=p) for n, x, p in models["mix"]]
+        if kind == "multi":
+            ref_srv.serve(ref_reqs)
+            srv.serve(_requests(models))
+        else:
+            with ref_srv, srv:
+                ref_srv.serve(ref_reqs)
+                srv.serve(_requests(models))
+        for name in models["port"]:
+            assert srv.stats()["engine"]["models"][name]["audit"] is None
+    assert _key_paths(srv.stats()) == _key_paths(ref_srv.stats())
