@@ -54,7 +54,19 @@ Phases (any failure exits nonzero; none is caught and passed over):
      turns against phase 4's servers; N3IC and BoS trained and Leo fitted
      beside MLP-B and RNN-B (the paper's Table 5, printed); one 20-step
      refine of CNN-M's depth-12 window bank;
-  8. a ``{"kernels": [...]}`` line, then the device line as the last line.
+  8. the plan audit and the dataplane: every plan phases 4-7 built on the
+     card carries audit counts with no error (its seconds per build
+     printed); its PGA103 rows per block and shared bytes equal
+     ``f32_launch_shape`` / ``launch_shape`` of the plan's own operands at
+     the rows a 4096-flow batch gives each step, on the card's SM count;
+     PGA104 flags exactly the int8 plans with byte-wise column tiles. Phase
+     7's refined MLP-B and the AE banks compiled to MAT pipelines (Table 6
+     rows); MLP-B's integer pipeline run on the card (``run_batch``) over
+     the test split and the 32,768-flow tiling — equal to ``run_packet`` on
+     the CPU on 256 flows, its flows/s, its argmax agreement with the
+     served ``kernel`` outputs and its macro-F1 beside theirs — and the AE
+     pipeline over the test split, held to ``run_packet`` the same way;
+  9. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -655,7 +667,7 @@ def family_path(name, ds, device, *, steps: int, tiny: bool = False,
     requests, tiled = _requests(name, inputs, n_serve)
     y = np.tile(ds.test["label"], -(-n_serve // len(ds.test["label"])))[:n_serve]
     res = dict(build_s=build_s, runs={}, requests=len(requests), model=model,
-               request_list=requests, teacher=trained, ds=ds)
+               request_list=requests, teacher=trained, ds=ds, inputs=tiled)
     if name != "ae":
         with torch.no_grad():
             logits = teacher(*(torch.as_tensor(a, device=device) for a in tiled))
@@ -892,12 +904,12 @@ def _check_drain(server, what: str) -> None:
                              f"fallback batches {fallback}")
 
 
-def async_server(mm, device, backend: str, smi: str) -> float:
+def async_server(mm, device, backend: str, smi: str) -> tuple:
     """``AsyncMultiModelServer(devices=1)``: one stream-pool worker on its own
     CUDA stream serves the same traffic through ``submit`` futures, twice
     (the first pass captures the worker stream's graphs); the second pass
     ends in ``stop(drain=True)``. Every output equals the sync drain's.
-    Returns the second pass's flows/s."""
+    Returns the second pass's flows/s and the (closed) server."""
     import numpy as np
 
     from repro_torch.launch.serve import AsyncMultiModelServer
@@ -935,7 +947,7 @@ def async_server(mm, device, backend: str, smi: str) -> float:
         f"{flows / dt:.1f} flows/s through futures (second pass, ending in "
         f"stop(drain=True)); pool {[(d['device'], d['dispatched_chunks']) for d in pool['per_device']]}"
         f" on {smi}")
-    return flows / dt
+    return flows / dt, srv
 
 
 def injected_fault(mm, device) -> dict:
@@ -1010,7 +1022,7 @@ def multi_model_phase(res, fams, device, smi: str) -> dict:
         missing = [k for k, n in out["launches"].items() if not n]
         if missing:
             raise AssertionError(f"phase 6 launched no {missing}")
-    out["async_flows_per_s"] = async_server(out["kernel"], device, "kernel", smi)
+    out["async_flows_per_s"], out["async"] = async_server(out["kernel"], device, "kernel", smi)
     out["health"] = injected_fault(out["kernel"], device)
     return out
 
@@ -1132,7 +1144,231 @@ def refinement_phase(res, fams, device, smi: str, *, baseline_steps: int = 900,
     log(f"  CNN-M window bank (K, v, C, N) {geom}: refine {cnn_m_steps} steps on {len(flat)} "
         f"windows in {cnn_s:.3f} s, hard_mse {before:.6g} -> {after:.6g}{peak} on {smi}")
     return dict(launches=served["launches"], runs=served["runs"], mse=mse, f1=f1,
-                refine_s=refined_s - plain_s, cnn_m=(before, after, cnn_s))
+                refine_s=refined_s - plain_s, cnn_m=(before, after, cnn_s), banks=banks)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the plan audit and the dataplane on the card
+# ---------------------------------------------------------------------------
+
+
+def _phase_plans(res, fams, multi, refined, device) -> list:
+    """(label, plan, served inputs) of every plan phases 4-7 built, once each."""
+    from repro_torch.engine import STATS, plan_for
+
+    builds = STATS.plan_builds
+    inputs = {"mlp": (res["x"],), **{name: f["inputs"] for name, f in fams.items()}}
+    out, seen = [], set()
+
+    def add(label, plan, x):
+        if id(plan) not in seen:
+            seen.add(id(plan))
+            out.append((label, plan, x))
+
+    for (be, fuse), run in res["runs"].items():
+        add(f"mlp {be} fuse={fuse}", run["server"].plan, inputs["mlp"])
+    for name, fam in fams.items():
+        for be, run in fam["runs"].items():
+            add(f"{name} {be}", run["server"].plan, inputs[name])
+    for be, server in (("kernel", multi["kernel"]["server"]),
+                       ("kernel_q8", multi["kernel_q8"]["server"]), ("async", multi["async"])):
+        for name in server.models():
+            add(f"multi {be} {name}", server.registry.get(name), inputs[name])
+    for (be, fuse), run in refined["runs"].items():
+        add(f"mlp refined {be} fuse={fuse}", run["server"].plan, inputs["mlp"])
+    # the memo's plans (plan_for: phase 7's Table 5 and memo check, the AE's
+    # anomaly scores): memo hits, nothing is built here
+    for label, model, name in (("mlp", res["model"], "mlp"),
+                               ("mlp refined", refined["banks"], "mlp"),
+                               ("rnn", fams["rnn"]["model"], "rnn"),
+                               ("ae", fams["ae"]["model"], "ae")):
+        add(f"plan_for {label}", plan_for(model, device=device), inputs[name])
+    if STATS.plan_builds != builds:
+        raise AssertionError(f"phase 8 built {STATS.plan_builds - builds} plan(s); it audits "
+                             "the plans of phases 4-7")
+    return out
+
+
+def _plan_steps(plan) -> list:
+    """(site, step) of a plan as the audit names them: fused stacks, then
+    the banks outside them."""
+    members = {id(b) for s in plan.fused_stacks for b in s.banks}
+    steps = []
+    for g, st in enumerate(plan.fused_stacks):
+        lo = plan.banks.index(st.banks[0])
+        steps.append((f"stack[{g}]=banks[{lo}:{lo + len(st.banks)}]", st))
+    steps += [(f"bank[{i}]", b) for i, b in enumerate(plan.banks) if id(b) not in members]
+    return steps
+
+
+def _launch_check(step, rows: int, n_sm: int) -> tuple:
+    """What the kernels' planners give one step at ``rows`` rows: f32 (rows
+    per block, shared bytes), int8 (rows per block, shared bytes), and
+    whether the int8 plan copies a column tile byte by byte."""
+    import numpy as np
+
+    from repro_torch.kernels.fuzzy_lut import quantized as Q
+    from repro_torch.kernels.fuzzy_lut.kernel import f32_launch_shape, plan_f32
+
+    if hasattr(step, "ks"):
+        ks, v, (kmax, c, nmax), n_out = step.ks, step.v, step.lut.shape[1:], step.n_out
+        ops = (step.features, step.thr, step.lut_q8, step.scales, step.bias)
+    else:
+        lay = step.layer
+        ks, v, kmax, c = (lay.num_groups,), lay.group_size, lay.num_groups, lay.num_centroids
+        n_out = lay.out_features
+        ops = (step.features, step.thr, step.lut_q8, step.scales, None)
+    f_rows, _, _, f_smem = f32_launch_shape(plan_f32(tuple(ks), v, int(np.log2(c)), kmax),
+                                            rows, n_sm)
+    qp = Q.launch_plan(v, *ops, ks, n_out)
+    q_rows, _, _, _, q_smem = Q.launch_shape(qp, rows, n_sm)
+    bytewise = any(st.flags & Q.LUT and not st.flags & Q.FULLROW and not st.bulk & Q.B_LUT
+                   for st in qp.stages)
+    return (f_rows, f_smem), (q_rows, q_smem), bytewise
+
+
+def audit_phase(res, fams, multi, refined, device, smi: str) -> dict:
+    """Phase 8, first half: every plan phases 4-7 built on ``device`` was
+    audited at build (counts in ``compile_stats()``, no error finding); its
+    PGA103 rows per block and shared bytes equal the kernels' planners at
+    the rows a 4096-flow batch gives each step (measured here with
+    ``bank_inputs``) on the device's SM count; PGA104 flags exactly the
+    steps whose int8 plan copies a column tile byte by byte."""
+    import numpy as np
+    import torch
+
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else 132)
+    plans = _phase_plans(res, fams, multi, refined, device)
+    flagged, expect, seconds = set(), set(), []
+    for label, plan, inputs in plans:
+        counts = plan.compile_stats()["audit"]
+        if counts is None or counts["error"]:
+            raise AssertionError(f"{label}: audit counts {counts} (expected counts, no error)")
+        rep = plan.audit_report
+        seconds.append(rep.summary["seconds"])
+        top = max(plan.buckets)
+        first = [np.concatenate([x] * -(-top // len(x)))[:top] for x in inputs]
+        rows = {id(b): int(x.shape[0]) for b, x in zip(plan.banks, plan.bank_inputs(*first))}
+        notes = {f.site: f for f in rep.findings if f.rule == "PGA103"}
+        warned = {f.site for f in rep.findings if f.rule == "PGA104" and f.severity == "warning"}
+        parts = []
+        for site, step in _plan_steps(plan):
+            head = step.banks[0] if hasattr(step, "ks") else step
+            f32, q8, bytewise = _launch_check(step, rows[id(head)], n_sm)
+            m = notes[site].metrics
+            got = ((m["f32"]["rows_per_block"], m["f32"]["smem_bytes"]),
+                   (m["q8"]["rows_per_block"], m["q8"]["smem_bytes"]))
+            if m["rows"] != rows[id(head)] or got != (f32, q8) or m["n_sm"] != n_sm:
+                raise AssertionError(f"{label} {site}: audit rows {m['rows']}, (rows/block, "
+                                     f"shared B) {got} on {m['n_sm']} SMs; the planners give "
+                                     f"{rows[id(head)]} rows, {(f32, q8)} on {n_sm}")
+            lay = head.layer
+            geom = (("stack", *step.ks) if hasattr(step, "ks") else
+                    (lay.num_groups, lay.group_size, lay.num_centroids, lay.out_features))
+            if bytewise:
+                expect.add((label, site))
+            if site in warned:
+                flagged.add((label, site, geom))
+            parts.append(f"{site} {rows[id(head)]} rows: f32 {f32[0]}/{f32[1]} B, int8 "
+                         f"{q8[0]}/{q8[1]} B{' PGA104' if site in warned else ''}")
+        log(f"  {label}: audit {rep.summary['seconds']:.4f} s at build, counts {counts}; "
+            f"PGA103 (rows/block, shared B per block) " + "; ".join(parts))
+    if {(label, site) for label, site, _ in flagged} != expect:
+        raise AssertionError(f"PGA104 flags {sorted(flagged)}; the int8 plans with byte-wise "
+                             f"column tiles are {sorted(expect)}")
+    geoms = sorted({(site, geom) for _, site, geom in flagged}, key=str)
+    log(f"  PGA104 flags {len(flagged)} launches of {len(plans)} plans, the int8 plans with "
+        f"byte-wise column tiles exactly: {geoms}")
+    log(f"  audit seconds per plan build: min {min(seconds):.4f}, max {max(seconds):.4f}, "
+        f"total {sum(seconds):.3f} over {len(plans)} plans on {smi} ({n_sm} SMs)")
+    return dict(plans=len(plans), flagged=geoms, seconds=seconds)
+
+
+def _pipeline_rate(pipe, x, device, reps: int = 5) -> tuple:
+    """(outputs, flows/s): the median of ``reps`` timed ``run_batch`` calls
+    over ``x`` on ``device`` (host clock ending in a sync), after one
+    untimed call that moves the tables there."""
+    import numpy as np
+    import torch
+
+    xb = torch.as_tensor(x, device=device)
+    out = pipe.run_batch(xb)
+    times = []
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = pipe.run_batch(xb)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    return out.cpu().numpy(), len(x) / float(np.median(times))
+
+
+def _exact_on(pipe, x, device, what: str) -> int:
+    """``run_batch`` on ``device`` over the first 256 flows of ``x`` equals
+    ``run_packet`` on the CPU, exactly. Returns the flows checked."""
+    import numpy as np
+    import torch
+
+    n = min(256, len(x))
+    got = pipe.run_batch(torch.as_tensor(x[:n], device=device)).cpu().numpy()
+    want = np.stack([pipe.run_packet(p) for p in x[:n]])
+    if got.dtype != np.int32 or not np.array_equal(got, want):
+        bad = int((got != want).any(-1).sum())
+        raise AssertionError(f"{what}: run_batch on {device} differs from run_packet on "
+                             f"{bad} of {n} flows")
+    return n
+
+
+def dataplane_phase(res, fams, refined, device, smi: str) -> dict:
+    """Phase 8, second half: phase 7's refined MLP-B (80 stateful bits per
+    flow, as the reference's quickstart) and the AE banks compiled to MAT
+    pipelines (Table 6 rows); MLP-B's integer pipeline run on ``device``
+    over the test split and the served tiling, exactly ``run_packet``'s
+    outputs, with its flows/s, its argmax agreement with the served
+    ``kernel`` outputs and its macro-F1 beside theirs; the AE pipeline over
+    the test split, held to ``run_packet`` the same way."""
+    import numpy as np
+
+    from repro_torch.dataplane.compile import compile_model
+    from repro_torch.nets.common import macro_f1
+
+    ds, nc = res["ds"], res["ds"].num_classes
+    n_test = len(ds.test["label"])
+    out = {}
+    pipe = compile_model(list(refined["banks"]), stateful_bits_per_flow=80)
+    ae_pipe = compile_model(list(fams["ae"]["model"]))
+    for name, p in (("MLP-B (refined)", pipe), ("AE", ae_pipe)):
+        rep = p.report()
+        log(f"  Table 6: {rep.table6_row(name)}  ({rep.stages_used} stages, "
+            f"{rep.recirculations} recirculation(s), PHV peak {rep.phv_bits_peak} bits, "
+            f"violations: {rep.validate() or 'none'})")
+        out[name] = dict(report=rep)
+    test_x = ds.test["stats"].astype(np.float32)
+    checked = _exact_on(pipe, test_x, device, "MLP-B pipeline")
+    served = refined["runs"][("kernel", True)]
+    for what, x, y in (("test split", test_x, ds.test["label"]),
+                       ("served tiling", res["x"], res["y"])):
+        ints, rate = _pipeline_rate(pipe, x, device)
+        f1 = macro_f1(ints.argmax(-1), y, nc)
+        line = (f"  MLP-B integer pipeline on {device}, {what} ({len(x)} flows): "
+                f"{rate:.1f} flows/s, macro-F1 {f1:.4f}")
+        if what == "served tiling":
+            agree = float((ints.argmax(-1) == served["out"].argmax(-1)).mean())
+            line += (f"; argmax agreement with the served kernel outputs {agree:.4f}, "
+                     f"served kernel macro-F1 {served['f1']:.4f}")
+            out["agree"], out["served_f1"] = agree, served["f1"]
+        else:
+            line += f" (kernel on the test split {refined['f1']['MLP-B (refined)']:.4f})"
+        log(line + f"; run_batch equal to run_packet on {checked} flows, on {smi}")
+        out[what] = dict(flows_per_s=rate, f1=f1)
+    feats = fams["ae"]["inputs"][0][:n_test]
+    checked = _exact_on(ae_pipe, feats, device, "AE pipeline")
+    _, rate = _pipeline_rate(ae_pipe, feats, device)
+    log(f"  AE integer pipeline on {device}, test split ({n_test} flows): {rate:.1f} flows/s; "
+        f"run_batch equal to run_packet on {checked} flows, on {smi}")
+    out["ae_flows_per_s"] = rate
+    return out
 
 
 def profile_window(server, requests, **kw) -> dict | None:
@@ -1198,9 +1434,11 @@ def main(argv=None) -> int:
         res = main_path(device, flows_per_class=48, steps=5, depth=3, n_serve=300)
         check_family_kernels(device, rows=64, time_it=False)
         fams = families_phase(device, flows_per_class=48, steps=5, tiny=True, n_serve=300)
-        multi_model_phase(res, fams, device, "the CPU (rehearsal)")
-        refinement_phase(res, fams, device, "the CPU (rehearsal)", baseline_steps=5,
-                         cnn_m_steps=3)
+        multi = multi_model_phase(res, fams, device, "the CPU (rehearsal)")
+        refined = refinement_phase(res, fams, device, "the CPU (rehearsal)",
+                                   baseline_steps=5, cnn_m_steps=3)
+        audit_phase(res, fams, multi, refined, device, "the CPU (rehearsal)")
+        dataplane_phase(res, fams, refined, device, "the CPU (rehearsal)")
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -1280,6 +1518,13 @@ def main(argv=None) -> int:
 
     log("refinement:")
     refined = refinement_phase(res, fams, device, smi)
+
+    log("the plan audit on the card:")
+    t0 = time.perf_counter()
+    audit_phase(res, fams, multi, refined, device, smi)
+    log("the dataplane on the card:")
+    dataplane_phase(res, fams, refined, device, smi)
+    log(f"phase 8 took {time.perf_counter() - t0:.2f} s")
 
     lines = []
     for name, source, replaces in KERNELS:

@@ -32,14 +32,17 @@ Backends are semantics-identical up to quantization:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.planaudit import PlanAuditError, audit_plan
 from repro_torch.analysis.sanitizer import make_lock
 from repro_torch.core.amm import PegasusLinear, apply_gather, apply_onehot
 from repro_torch.core.fuzzy_tree import FuzzyTree, hard_index
+from repro_torch.data.synthetic_traffic import WINDOW
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fuzzy_lut import _lib
 from repro_torch.kernels.fuzzy_lut.kernel import fuzzy_lut, fuzzy_lut_stack, stack_fits
@@ -449,9 +452,15 @@ class ExecutionPlan:
         self.fused_banks = 0
         self.fused_stacks: list = []
         # set by build_plan: the non-bank model state the plan froze (the
-        # registry compares it with the live model) and the fusion knobs
+        # registry compares it with the live model), the fusion knobs the
+        # plan audit explains unfused pairs with, and the audit's report
         self._aux_token: tuple = ()
         self.fuse_cfg: dict | None = None
+        self.audit_report = None
+        # rows a bank sees per flow where it is not one (the CNN window
+        # bank runs once per window, the CNN-L banks once per packet): the
+        # plan audit prices launches at the rows the largest bucket gives
+        self._rows_per_flow: dict[int, int] = {}
         # counters and the graph table: the drain thread, infer() callers
         # and the stream pool's workers may call one plan at once
         self._lock = make_lock("plan._ctr.lock")
@@ -467,6 +476,11 @@ class ExecutionPlan:
         self._replica_lock = make_lock("plan._replica_lock")
         self._replicas: dict[torch.device, Any] = {}        # guarded-by: _replica_lock
         STATS.plan_builds += 1
+
+    def step_rows_per_flow(self, step) -> int:
+        """Rows one flow of a batch gives ``step`` (a bank or a fused stack)."""
+        bank = step.banks[0] if isinstance(step, FusedBankStack) else step
+        return self._rows_per_flow.get(id(bank), 1)
 
     @property
     def trace_count(self) -> int:
@@ -664,8 +678,10 @@ class ExecutionPlan:
             # the sharded width: 1 until the sharded mode is ported
             # (placed calls don't change it)
             "devices": 1,
-            # plan-audit finding counts: None until the plan audit is ported
-            "audit": None,
+            # plan-audit finding counts (repro_torch.analysis.planaudit),
+            # None when the plan was built with audit="off" and never audited
+            "audit": None if self.audit_report is None
+            else dict(self.audit_report.counts),
         }
 
     @property
@@ -795,6 +811,7 @@ def _cnn_plan(model, backend, buckets, fuse, nmax_cap, device) -> ExecutionPlan:
 
     plan = ExecutionPlan([window_bank] + head_banks, forward, state, device=device,
                          backend=backend, family="cnn", bucket_sizes=buckets)
+    plan._rows_per_flow[id(window_bank)] = int(model.pool_windows)
     _note_fusion(plan, head_steps)
     return plan
 
@@ -821,8 +838,11 @@ def _cnn_l_plan(model, backend, buckets, device) -> ExecutionPlan:
         contrib = state["logit_lut"][idx].reshape(b, w, -1)
         return contrib.sum(dim=1) + state["bias"]
 
-    return ExecutionPlan([bank1, bank2], forward, state, device=device, backend=backend,
+    plan = ExecutionPlan([bank1, bank2], forward, state, device=device, backend=backend,
                          family="cnn_l", bucket_sizes=buckets)
+    # one row per packet of the traffic's window
+    plan._rows_per_flow.update({id(bank1): WINDOW, id(bank2): WINDOW})
+    return plan
 
 
 def build_plan(
@@ -833,6 +853,7 @@ def build_plan(
     fuse: bool = True,
     fuse_nmax_cap: int | None = DEFAULT_FUSE_NMAX_CAP,
     device: str | torch.device = "cuda",
+    audit: str = "warn",
 ) -> ExecutionPlan:
     """Compile any pegasusified model into an ExecutionPlan on ``device``.
 
@@ -853,7 +874,19 @@ def build_plan(
     the GPU unless ``device="cpu"``. The reference's build-time sharded
     mode (``devices=``) is not ported; serve across devices with
     ``MultiModelServer(devices=...)``, which places whole calls instead.
+
+    ``audit`` runs the static plan audit
+    (:mod:`repro_torch.analysis.planaudit`, PGA101-PGA106) over the new
+    plan: ``"warn"`` (the default) attaches the report as
+    ``plan.audit_report`` and raises a ``UserWarning`` when it carries
+    error or warning findings, ``"error"`` raises
+    :class:`~repro_torch.analysis.planaudit.PlanAuditError` on error
+    findings, ``"off"`` skips it (``audit_report`` stays ``None``). The
+    audit reads the plan's tables on the host and launches nothing, before
+    any graph is captured.
     """
+    if audit not in ("off", "warn", "error"):
+        raise ValueError(f"audit must be 'off'|'warn'|'error', got {audit!r}")
     dev = resolve_device(device)
     # the onehot backend is an fp32 matmul: TF32 would cost it fp32 parity
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -875,7 +908,25 @@ def build_plan(
         raise TypeError(f"don't know how to compile {type(model).__name__} into a plan")
     plan._aux_token = _model_aux(model)
     plan.fuse_cfg = {"fuse": fuse, "nmax_cap": fuse_nmax_cap}
+    _run_build_audit(plan, audit)
     return plan
+
+
+def _run_build_audit(plan: ExecutionPlan, audit: str) -> None:
+    """Build-time hook into the plan audit."""
+    if audit == "off":
+        return
+    report = audit_plan(plan)
+    plan.audit_report = report
+    counts = report.counts
+    if audit == "error" and counts["error"]:
+        raise PlanAuditError(report)
+    if counts["error"] or counts["warning"]:
+        warnings.warn(
+            f"plan audit: {counts['error']} error / {counts['warning']} "
+            f"warning finding(s) — inspect plan.audit_report or rerun "
+            f"`python -m repro_torch.analysis plan`:\n{report}",
+            stacklevel=3)
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ import weakref
 from collections import OrderedDict
 from typing import Any
 
+from repro_torch.analysis.planaudit import audit_plan
 from repro_torch.analysis.sanitizer import make_lock
 from repro_torch.device import resolve_device
 
@@ -121,7 +122,10 @@ class PlanRegistry:
     def plan_for(self, model: Any, **kw) -> ExecutionPlan:
         """Memoized :func:`build_plan`. The build options are part of the
         key, so one model may hold e.g. fused and unfused, or CPU and GPU,
-        plans side by side."""
+        plans side by side. The audit mode does not change the compiled
+        plan: it is popped before keying, so ``audit="off"`` and the
+        default share one plan (audited or not by whichever built it)."""
+        audit = kw.pop("audit", "warn")
         if kw.get("bucket_sizes") is not None:
             kw["bucket_sizes"] = tuple(kw["bucket_sizes"])
         # an absent knob keys like its build_plan default
@@ -148,7 +152,7 @@ class PlanRegistry:
             # memo (a hit on success; after a failed build, build here)
             inflight.wait()
         try:
-            plan = build_plan(model, **kw)
+            plan = build_plan(model, audit=audit, **kw)
         except BaseException:
             with self._lock:
                 self._building.pop(key, None)
@@ -297,6 +301,17 @@ class PlanRegistry:
             return False
         self.discard(ent["model"])
         return True
+
+    def audit_report(self, name: str):
+        """The plan-audit report of the plan serving ``name``
+        (:class:`repro_torch.analysis.planaudit.AuditReport`). A plan built
+        with ``audit="off"`` is audited here, once, and the report cached
+        on the plan, so ``stats()`` reports counts from then on. Runs
+        outside the registry lock."""
+        plan = self.get(name)
+        if plan.audit_report is None:
+            plan.audit_report = audit_plan(plan)
+        return plan.audit_report
 
     def stats(self) -> dict:
         """Per-name compile-cache + build stats (the serving ops surface)."""

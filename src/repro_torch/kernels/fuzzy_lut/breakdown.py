@@ -98,7 +98,7 @@ def _q8_launcher(f, fn_name, args, ks, n_out, nmax):
     """A call of ``f`` with the int8 wrapper's own plan and launch shape."""
     dev = args[0].device
     plan = Q.plan_q8(ks, V, DEPTH, max(ks), nmax, n_out, has_bias=len(args) == 6)
-    rows, nchunks, grid, threads, smem = Q.launch_shape(plan, T, dev)
+    rows, nchunks, grid, threads, smem = Q.launch_shape(plan, T, K._sm_count(dev))
     geom = _lib.Q8Geom(L=len(ks), k0=ks[0], kmax=max(ks), nmax=nmax, n_out=n_out,
                        v=V, depth=DEPTH, width=plan.width, kstride=plan.kstride,
                        rows=rows, nchunks=nchunks, nstages=len(plan.stages),

@@ -27,7 +27,8 @@ from .kernel import (
     _sm_count, _stack_plain,
 )
 
-__all__ = ["Q8Plan", "Q8Stage", "Q8_SMEM_BYTES", "launch_shape", "quantize_lut_int8",
+__all__ = ["Q8Plan", "Q8Stage", "Q8_SMEM_BYTES", "launch_plan", "launch_shape",
+           "quantize_lut_int8",
            "fuzzy_lut_q8", "fuzzy_lut_q8_plain", "fuzzy_lut_stack_q8",
            "fuzzy_lut_stack_q8_plain", "launch_q8", "plan_q8", "stage_q8"]
 
@@ -274,7 +275,7 @@ def _stage_table(plan: Q8Plan, device: torch.device) -> torch.Tensor:
     return table
 
 
-def _launch_plan(v: int, features, thresholds, lut_q8, scales, bias, ks,
+def launch_plan(v: int, features, thresholds, lut_q8, scales, bias, ks,
                  n_out) -> Q8Plan:
     """The :func:`plan_q8` of a launch over these operands; it keys on
     their alignment, so operands a compiled plan owns keep one plan."""
@@ -291,14 +292,14 @@ def stage_q8(v: int, features, thresholds, lut_q8, scales, bias=None, *,
     ahead of the first launch (a bank: ``ks=(K,)``, ``n_out=N``, no bias;
     a stack: its ``ks``, ``n_out`` and bias), so that a CUDA graph can
     capture the launch."""
-    plan = _launch_plan(v, features, thresholds, lut_q8, scales, bias, ks, n_out)
+    plan = launch_plan(v, features, thresholds, lut_q8, scales, bias, ks, n_out)
     _stage_table(plan, features.device)
 
 
-def launch_shape(plan: Q8Plan, t: int, device: torch.device):
+def launch_shape(plan: Q8Plan, t: int, n_sm: int):
     """(rows per chunk, chunks, grid, threads, shared bytes) of a launch
-    over ``t`` rows: about one chunk per SM, one warp per row."""
-    n_sm = _sm_count(device)
+    over ``t`` rows on ``n_sm`` SMs: about one chunk per SM, one warp per
+    row."""
     rows = plan.rows_for(t, n_sm)
     nchunks = -(-t // rows)
     return (rows, nchunks, min(nchunks, n_sm), 32 * min(Q8_MAX_WARPS, rows),
@@ -315,8 +316,8 @@ def launch_q8(fn_name: str, x, features, thresholds, lut_q8, scales, bias,
     y = torch.empty((t, n_out), dtype=torch.float32, device=x.device)
     if not t:
         return y
-    plan = _launch_plan(v, features, thresholds, lut_q8, scales, bias, ks, n_out)
-    rows, nchunks, grid, threads, smem = launch_shape(plan, t, x.device)
+    plan = launch_plan(v, features, thresholds, lut_q8, scales, bias, ks, n_out)
+    rows, nchunks, grid, threads, smem = launch_shape(plan, t, _sm_count(x.device))
     geom = _lib.Q8Geom(L=len(ks), k0=k0, kmax=kmax, nmax=nmax, n_out=n_out, v=v,
                        depth=depth, width=plan.width, kstride=plan.kstride,
                        rows=rows, nchunks=nchunks,

@@ -129,8 +129,9 @@ class DeviceStreamPool:
         # (assert_worker); all binds are no-ops unless PEGASUS_SANITIZE=1
         self._affinities = {i: ThreadAffinity(f"device-stream-{i}")
                             for i in range(len(self._streams))}
-        for s in self._streams:
-            self._spawn(s)
+        with self._lock:
+            for s in self._streams:
+                self._spawn(s)
 
     @property
     def devices(self) -> tuple:
@@ -139,12 +140,13 @@ class DeviceStreamPool:
     def __len__(self) -> int:
         return len(self._streams)
 
+    # holds: _lock
     def _spawn(self, s: _Stream) -> None:
-        t = threading.Thread(target=self._run, args=(s,),
-                             name=f"device-stream-{s.index}", daemon=True)
-        with self._lock:
-            s.thread = t
-        t.start()
+        """Start a worker for ``s``. Under the lock, so no reader sees the
+        new thread before it is alive and reaps the stream as dead."""
+        s.thread = threading.Thread(target=self._run, args=(s,),
+                                    name=f"device-stream-{s.index}", daemon=True)
+        s.thread.start()
 
     # -- placement -----------------------------------------------------------
 
@@ -365,15 +367,18 @@ class DeviceStreamPool:
         return orphans
 
     def _respawn(self, s: _Stream) -> None:
-        """Backoff-timer callback: bring a dead stream's worker back."""
+        """Backoff-timer callback: bring a dead stream's worker back.
+
+        Keyed on ``s.dead``, not on the thread: the worker that died may
+        still be alive when the timer fires (failing its orphans, running
+        their done-callbacks), and reading it as healthy would lose the
+        stream for the life of the pool."""
         with self._lock:
-            if self._closed:
+            if self._closed or not s.dead:
                 return
-            if s.thread is not None and s.thread.is_alive():
-                return                 # already healthy (raced a respawn)
             s.dead = False
             s.respawns += 1
-        self._spawn(s)
+            self._spawn(s)
 
     # -- ops surface ---------------------------------------------------------
 

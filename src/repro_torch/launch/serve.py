@@ -411,7 +411,8 @@ class MultiModelServer:
         ``weight`` sets its WFQ share; ``queue_depth``/``policy`` bound its
         queue (``"reject"`` raises :class:`QueueFullError` at submit,
         ``"block"`` parks the submitter); ``build_kw`` goes to
-        ``build_plan`` (``fuse``, ``bucket_sizes``, ``device`` ...).
+        ``build_plan`` (``fuse``, ``bucket_sizes``, ``device``, ``audit``
+        ...).
         Re-registering a name rebuilds its plan and re-applies any explicit
         scheduling field."""
         build_kw.setdefault("fuse", self.fuse)

@@ -241,6 +241,50 @@ def test_pool_crashed_worker_migrates_and_respawns():
         pool.close()
 
 
+def test_pool_respawns_while_the_dead_worker_is_still_alive():
+    """The backoff timer fires while the worker that died is still alive:
+    it is failing the chunk it held, and that chunk's done-callback keeps
+    it there until the stream has come back. The stream must come back
+    all the same (a live dying thread is not a healthy stream)."""
+    inj = tchaos.FaultInjector()
+    inj.inject("stream_dispatch", stream=0, after=2, count=1)
+    pool = DeviceStreamPool([CPU], chaos=inj, respawn_backoff_s=0.0)
+    try:
+        gate, started = threading.Event(), threading.Event()
+        first = pool.submit(_gated(started, gate, "first"), 1)
+        assert started.wait(WAIT)
+        doomed = pool.submit(lambda d: "never", 1)       # queued behind it
+        seen: dict = {}
+        held = threading.Event()
+
+        def hold(fut):
+            # runs on the dying worker, inside its failure handler
+            seen["thread"] = threading.current_thread()
+            deadline = time.monotonic() + WAIT
+            while (pool.stats()["per_device"][0]["respawns"] == 0
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            seen["respawns_while_held"] = pool.stats()["per_device"][0]["respawns"]
+            held.set()
+
+        doomed.add_done_callback(hold)
+        gate.set()
+        assert first.result(timeout=WAIT) == "first"
+        assert held.wait(2 * WAIT)
+        with pytest.raises(tchaos.InjectedFaultError):
+            doomed.result(timeout=WAIT)
+        assert seen["thread"].name == "device-stream-0"
+        assert seen["respawns_while_held"] == 1, "no respawn while the dead worker lived"
+        back = pool.submit(lambda d: threading.current_thread(), 1).result(timeout=WAIT)
+        assert back.name == "device-stream-0" and back is not seen["thread"]
+        st = pool.stats()
+        assert st["dead_streams"] == 0
+        assert st["per_device"][0]["crashes"] == 1 and st["per_device"][0]["respawns"] == 1
+        assert not st["per_device"][0]["dead"]
+    finally:
+        pool.close()
+
+
 def test_pool_carries_dispatch_errors_on_futures():
     pool = DeviceStreamPool([CPU, CPU], breaker_failures=2)
     try:

@@ -98,7 +98,7 @@ def test_bucketing_matches_reference():
 
 
 def test_compile_stats_schema_and_first_uses(ref):
-    jplan = jax_build_plan(ref["banks"], audit="off")
+    jplan = jax_build_plan(ref["banks"])
     plan = build_plan(ref["port_banks"], device="cpu")
     calls = [(ref["x"][:5], "gather"), (ref["x"][:7], "gather"), (ref["x"], "kernel"),
              (ref["x"][:3], "kernel")]
@@ -109,8 +109,12 @@ def test_compile_stats_schema_and_first_uses(ref):
     assert st["traces"] == 3 and st["jit_calls"] == 4 and st["bucket_hits"] == 1
     assert st["buckets"] == [("gather", 8), ("kernel", 8), ("kernel", 16)]
     for key in ("traces", "jit_calls", "bucket_hits", "buckets", "pad_waste",
-                "pad_waste_fused", "fused_groups", "fused_banks", "devices", "audit"):
+                "pad_waste_fused", "fused_groups", "fused_banks", "devices"):
         assert st[key] == jst[key], key
+    # both packages audit by default: finding counts, the same keys, no error
+    assert st["audit"] == plan.audit_report.counts
+    assert set(st["audit"]) == set(jst["audit"]) == {"error", "warning", "info"}
+    assert st["audit"]["error"] == 0
 
 
 def test_fused_stack_checks_geometry_once_and_never_falls_back(ref):

@@ -415,13 +415,12 @@ def test_chip_smoke_multi_model_rehearsal():
 
 
 def _key_paths(d, prefix=()) -> set:
-    """Every nested key of a stats dict as a path tuple. ``audit`` is a
-    leaf: the port has no plan audit yet (None), while the reference's
-    PegasusServer always audits and reports finding counts there."""
+    """Every nested key of a stats dict as a path tuple, the plan audit's
+    finding counts (``audit``: error, warning, info) included."""
     out = set()
     for k, v in d.items():
         out.add(prefix + (k,))
-        if isinstance(v, dict) and k != "audit":
+        if isinstance(v, dict):
             out |= _key_paths(v, prefix + (k,))
     return out
 
@@ -439,13 +438,15 @@ def test_stats_schema_matches_reference(models, kind):
         ref_srv.serve([JaxRequest("mlp", jnp.asarray(models["src"]["mlp"][:5]))])
         srv = PegasusServer(models["port"]["mlp"], backend="kernel", device="cpu")
         srv.serve([InferRequest("mlp", models["src"]["mlp"][:5])])
-        assert srv.stats()["engine"]["audit"] is None
+        counts = srv.stats()["engine"]["audit"]
+        assert set(counts) == set(ref_srv.stats()["engine"]["audit"]) == {"error", "warning", "info"}
+        assert counts["error"] == 0
     else:
         cls = (JaxMultiModelServer, MultiModelServer) if kind == "multi" else \
             (JaxAsyncMultiModelServer, AsyncMultiModelServer)
         ref_srv = cls[0](backend="kernel", **SERVER_KW)
         for name, model in models["ref"].items():
-            ref_srv.add_model(name, model, priority=PRIORITY[name], audit="off", **BUILD_KW)
+            ref_srv.add_model(name, model, priority=PRIORITY[name], **BUILD_KW)
         srv = _port_server(models, cls[1])
         ref_reqs = [JaxRequest(n, jnp.asarray(x), priority=p) for n, x, p in models["mix"]]
         if kind == "multi":
@@ -456,5 +457,8 @@ def test_stats_schema_matches_reference(models, kind):
                 ref_srv.serve(ref_reqs)
                 srv.serve(_requests(models))
         for name in models["port"]:
-            assert srv.stats()["engine"]["models"][name]["audit"] is None
+            counts = srv.stats()["engine"]["models"][name]["audit"]
+            want = ref_srv.stats()["engine"]["models"][name]["audit"]
+            assert set(counts) == set(want) == {"error", "warning", "info"}, name
+            assert counts["error"] == 0, name
     assert _key_paths(srv.stats()) == _key_paths(ref_srv.stats())
