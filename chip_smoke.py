@@ -66,7 +66,23 @@ Phases (any failure exits nonzero; none is caught and passed over):
      the CPU on 256 flows, its flows/s, its argmax agreement with the
      served ``kernel`` outputs and its macro-F1 beside theirs — and the AE
      pipeline over the test split, held to ``run_packet`` the same way;
-  9. a ``{"kernels": [...]}`` line, then the device line as the last line.
+  9. the LM stack: Qwen2-VL-2B at its published width (28 layers, d_model
+     1536, d_ff 8960, vocab 151,936; f32, random weights from a seed) drawn
+     on the card; ``make_prefill_step`` over 8 x 1024 tokens (the chunked
+     attention path) and ``Server(kv_len=2048, batch_size=8).generate``
+     of 32 tokens, tokens/s each; 16 greedy ``decode_step``s held to
+     ``forward_train`` (2e-3); a ``torch.profiler`` window over 8 decode
+     steps. The last layer's FFN input, captured during the prefill by a
+     forward hook, calibrates ``pegasusify_ffn_layer`` (v=4, depth 4, bf16
+     LUT; fit seconds printed); ``pegasus_ffn_apply`` on gather, kernel and
+     kernel_q8 over 8 and 8,192 rows: every bank launch bit-equal to its
+     plain version, the FFN on kernel within 1e-4 of gather over the LUT
+     upcast to f32, kernel_q8 under 0.12 per bank, one launch per bank per
+     FFN call; each bank geometry timed (f32 and int8 in turns) beside its
+     bound, its plain version and the dense product it replaces; then the
+     nine other architectures at ``smoke_config`` on the card against the
+     port's own CPU run (1e-4);
+ 10. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -225,17 +241,17 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def device_ms(fn, inner: int = 20, reps: int = 25) -> float:
+def device_ms(fn, inner: int = 20, reps: int = 25, warmup: int = 3) -> float:
     """Median device time of one ``fn()`` call: ``inner`` calls captured in
     one CUDA graph, replayed ``reps`` times between CUDA events (the host's
-    per-call overhead is not in it)."""
+    per-call overhead is not in it), after ``warmup`` eager calls."""
     import numpy as np
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -276,9 +292,11 @@ def _compare(name, shape_tag, got_y, got_leaves, want_y, want_leaves):
     return err
 
 
-def abba_ms(fn_a, fn_b) -> tuple[float, float]:
-    """Device times of ``fn_a`` and ``fn_b`` taken in turns a, b, b, a."""
-    a1, b1, b2, a2 = device_ms(fn_a), device_ms(fn_b), device_ms(fn_b), device_ms(fn_a)
+def abba_ms(fn_a, fn_b, **kw) -> tuple[float, float]:
+    """Device times of ``fn_a`` and ``fn_b`` taken in turns a, b, b, a
+    (``kw`` goes to :func:`device_ms`)."""
+    a1, b1, b2, a2 = (device_ms(fn_a, **kw), device_ms(fn_b, **kw), device_ms(fn_b, **kw),
+                      device_ms(fn_a, **kw))
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -1373,16 +1391,21 @@ def dataplane_phase(res, fams, refined, device, smi: str) -> dict:
 
 def profile_window(server, requests, **kw) -> dict | None:
     """``torch.profiler`` over one served run of ``server`` (``kw`` goes to
-    ``serve``): device time by kernel name and the device's idle share over
-    the window (the span from the first to the last event, host or device).
-    None when the trace holds no device time."""
+    ``serve``); see :func:`profile_fn`."""
+    return profile_fn(lambda: server.serve(requests, **kw))
+
+
+def profile_fn(fn) -> dict | None:
+    """``torch.profiler`` over one ``fn()``: device time by kernel name and
+    the device's idle share over the window (the span from the first to the
+    last event, host or device). None when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.serve(requests, **kw)
+        fn()
         torch.cuda.synchronize()
     events = list(prof.events())
     dev = [e for e in events if e.device_type == DeviceType.CUDA
@@ -1405,6 +1428,380 @@ def profile_window(server, requests, **kw) -> dict | None:
     t1 = max(e.time_range.end for e in events)
     return dict(window_us=t1 - t0, busy_us=busy, idle_share=1 - busy / (t1 - t0),
                 by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the LM stack, Qwen2-VL-2B at its published width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2_vl_2b"
+# full size: 8 prompts, 1024-token prefill (the chunked attention path), a
+# 2048-slot cache, 32 generated tokens, 16 decode steps held to the forward
+LM_FULL = dict(batch=8, prefill_len=1024, kv_len=2048, max_new=32, check_steps=16,
+               calib_rows=1024)
+LM_REHEARSE = dict(batch=2, prefill_len=1024, kv_len=64, max_new=4, check_steps=8,
+                   calib_rows=1024)
+# the reference's own prefill-vs-decode limit (tests/test_archs.py)
+LM_DECODE_TOL = 2e-3
+# kernel vs gather over the LUT upcast to f32: both sum the same f32 terms
+# in ascending k, so they agree to the bit; the limit leaves f32 headroom
+LM_FFN_TOL = 1e-4
+# the smoke architectures on the card vs the CPU: f32 sums in another order
+# (the Hymba mamba state grows to ~60 over 32 steps, ~1e-6 relative)
+LM_SMOKE_TOL = 1e-4
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_STEPS = 2, 32, 4
+LM_TIME_BUDGET_S = 1.0     # per device_ms call at the LM bank geometries
+
+
+def _median_s(fn, device, reps: int = 3) -> float:
+    """Median wall seconds of ``fn()`` over ``reps`` runs, each ending in a
+    sync (host clock)."""
+    import numpy as np
+
+    times = []
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def _close(got, want, tol: float, what: str) -> float:
+    """Max |got - want|; raises unless |got - want| <= tol + tol * |want|
+    everywhere."""
+    import torch
+
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not torch.isfinite(got).all() or \
+            bool(((got - want).abs() > tol + tol * want.abs()).any()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                             f"max |diff| {err} (limit {tol} + {tol}·|ref|)")
+    return err
+
+
+def lm_dense(cfg, device, smi: str, *, batch, prefill_len, kv_len, max_new,
+             check_steps, **_) -> dict:
+    """The dense model on ``device``: prefill, generate, decode against the
+    forward, a profiler window over 8 decode steps. Captures the last
+    layer's FFN input during the first prefill (forward pre-hook)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import Server, make_prefill_step
+    from repro_torch.models.transformer import (
+        decode_step, forward_train, init_decode_state, init_model, padded_vocab,
+    )
+
+    t0 = time.perf_counter()
+    params = init_model(cfg, 0, dtype=torch.float32, device=device)
+    _sync(device)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} (padded {padded_vocab(cfg)}): {n_params} f32 parameters "
+        f"({4 * n_params / 1e9:.3f} GB) drawn on {device} in {time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prefill_len)),
+                             dtype=torch.int32, device=device)
+    prefill = make_prefill_step(cfg)
+    captured = []
+    hook = params.layers[-1].ffn.register_forward_pre_hook(
+        lambda _m, args: captured.append(args[0].detach().clone()))
+    try:
+        first = prefill(params, {"tokens": tokens})
+    finally:
+        hook.remove()
+    if first.shape != (batch,) or int(first.min()) < 0 or int(first.max()) >= padded_vocab(cfg):
+        raise AssertionError(f"prefill tokens {first.tolist()} out of range")
+    prefill_s = _median_s(lambda: prefill(params, {"tokens": tokens}), device)
+    prefill_tps = batch * prefill_len / prefill_s
+
+    server = Server(cfg, device=device, kv_len=kv_len, batch_size=batch, params=params)
+    prompts = tokens[:, :1].cpu().numpy()
+    out = server.generate(prompts, max_new=max_new)
+    if out.shape != (batch, 1 + max_new) or out.min() < 0 or out.max() >= padded_vocab(cfg):
+        raise AssertionError(f"generate returned {out.shape} tokens in "
+                             f"[{out.min()}, {out.max()}]")
+    decode_s = _median_s(lambda: server.generate(prompts, max_new=max_new), device)
+    decode_tps = batch * max_new / decode_s
+    log(f"  prefill {batch} x {prefill_len} tokens: median {prefill_s:.4f} s, "
+        f"{prefill_tps:.1f} tokens/s; generate {batch} x {max_new} tokens (kv_len "
+        f"{kv_len}): median {decode_s:.4f} s, {decode_tps:.1f} tokens/s (host clock "
+        f"ending in a sync, median of 3, f32 matmul precision "
+        f"{torch.get_float32_matmul_precision()}) on {smi}")
+
+    # greedy decode_step against forward_train over the same tokens
+    state = init_decode_state(cfg, batch, check_steps, dtype=torch.float32, device=device)
+    tok, fed, steps = tokens[:, :1], [], []
+    with torch.no_grad():
+        for t in range(check_steps):
+            logits, state = decode_step(cfg, params, state, tok, t)
+            fed.append(tok)
+            steps.append(logits)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        full, _ = forward_train(cfg, params, {"tokens": torch.cat(fed, dim=1)})
+    dec = torch.stack(steps, dim=1)
+    err = _close(dec, full, LM_DECODE_TOL, f"{cfg.name} decode vs forward")
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    log(f"  {check_steps} greedy decode_steps vs forward_train: max |diff| {err:.3e} "
+        f"(limit {LM_DECODE_TOL}), argmax agreement {agree:.4f}")
+
+    prof = None
+    if device.type == "cuda":
+        prof = profile_fn(lambda: server.generate(prompts, max_new=8))
+    del server
+    return dict(params=params, ffn_in=captured[0], prefill_tps=prefill_tps,
+                decode_tps=decode_tps, prefill_s=prefill_s, decode_s=decode_s,
+                decode_err=err, agree=agree, profile=prof, n_params=n_params)
+
+
+def _f32_lut(ffn):
+    """The PegasusFFN with each LUT upcast to f32 (the gather oracle of the
+    kernel path, which sums the f32 upcast of the LUT)."""
+    import dataclasses
+
+    return dataclasses.replace(ffn, **{
+        name: dataclasses.replace(b, lut=b.lut.float())
+        for name, b in (("w_in", ffn.w_in), ("w_gate", ffn.w_gate), ("w_out", ffn.w_out))
+        if b is not None})
+
+
+def _bank_rel(bank, x, path: str) -> float:
+    """||bank on ``path`` - bank on gather|| / ||bank on gather||."""
+    import torch
+
+    from repro_torch.core.amm import pegasus_linear_apply
+
+    yg = pegasus_linear_apply(bank, x, path="gather")
+    yp = pegasus_linear_apply(bank, x, path=path)
+    return float(torch.linalg.norm(yp - yg) / max(float(torch.linalg.norm(yg)), 1e-6))
+
+
+def lm_pegasus(cfg, dense: dict, device, smi: str, *, calib_rows, time_it: bool, **_) -> dict:
+    """The last layer's FFN pegasusified at the reference defaults and run
+    on gather / kernel / kernel_q8 over 8 and all captured rows; each bank
+    launch held against its plain version; the launch counts of the
+    counted FFN calls; each bank geometry timed (f32 and int8 in turns)
+    beside its bound, its plain version and the dense product it replaces."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.amm import pegasus_linear_apply
+    from repro_torch.kernels.fuzzy_lut import _lib, ops
+    from repro_torch.kernels.fuzzy_lut import kernel as K
+    from repro_torch.kernels.fuzzy_lut import quantized as Q
+    from repro_torch.models.layers import activation
+    from repro_torch.models.pegasus_layer import pegasus_ffn_apply, pegasusify_ffn_layer
+
+    dense_ffn = dense["params"].layers[-1].ffn
+    rows = dense["ffn_in"].reshape(-1, cfg.d_model)
+    calib, held = rows[:calib_rows], rows[calib_rows:]
+    t0 = time.perf_counter()
+    ffn = pegasusify_ffn_layer(cfg, dense_ffn, calib.cpu().numpy())
+    fit_s = time.perf_counter() - t0
+    banks = dict(w_in=ffn.w_in, w_gate=ffn.w_gate, w_out=ffn.w_out)
+    log(f"  pegasusified the last FFN (v=4, depth 4, bf16 LUT) on {calib_rows} captured "
+        f"rows in {fit_s:.2f} s: (K, C, N) = " + ", ".join(
+            f"{n} {(b.num_groups, b.num_centroids, b.out_features)}" for n, b in banks.items()))
+    ffn32 = _f32_lut(ffn)
+    act = activation(cfg.act)
+
+    launches = dict.fromkeys(_lib.LAUNCHES, 0)
+    probs, out = [], dict(fit_s=fit_s, runs={})
+    for x in (held[:8], rows):
+        t = x.shape[0]
+        with torch.no_grad():
+            h = act(pegasus_linear_apply(ffn.w_gate, x, path="kernel")) * \
+                pegasus_linear_apply(ffn.w_in, x, path="kernel")
+        inputs = dict(w_in=x, w_gate=x, w_out=h)
+        rels = {}
+        for name, bank in banks.items():
+            xb = inputs[name]
+            xg = xb.reshape(-1, bank.num_groups, bank.group_size).contiguous()
+            f, th, lut, _ = ops.padded_layout(bank, quant=False)
+            qf, qth, q, sc = ops.padded_layout(bank, quant=True)
+            tag = f"{name} T={t} K={bank.num_groups} N={bank.out_features}"
+            y, lv = K.fuzzy_lut(xg, f, th, lut, return_leaves=True)
+            wy, wl = K.fuzzy_lut_plain(xg, f, th, lut)
+            err32 = _compare("fuzzy_lut", tag, y, lv, wy, wl)
+            y, lv = Q.fuzzy_lut_q8(xg, qf, qth, q, sc, return_leaves=True)
+            wy, wl8 = Q.fuzzy_lut_q8_plain(xg, qf, qth, q, sc)
+            err8 = _compare("fuzzy_lut_q8", tag, y, lv, wy, wl8)
+            rels[name] = _bank_rel(bank, xb, "kernel_q8")
+            probs.append(dict(tag=tag, name=name, t=t, x=xg, f=f, th=th, lut=lut, q=q, sc=sc,
+                              leaves=wl, err32=err32, err8=err8, xb=xb,
+                              w=getattr(dense_ffn, name)))
+        if max(rels.values()) >= Q8_BANK_REL:
+            raise AssertionError(f"kernel_q8 per-bank rel {rels} (< {Q8_BANK_REL}) at T={t}")
+
+        # the counted run: the FFN on each kernel path, counts set to 0 just before
+        _sync(device)
+        _lib.reset_launches()
+        with torch.no_grad():
+            y_k = pegasus_ffn_apply(ffn, x, path="kernel")
+            y_q = pegasus_ffn_apply(ffn, x, path="kernel_q8")
+        _sync(device)
+        got = dict(_lib.LAUNCHES)
+        for key, n in got.items():
+            launches[key] += n
+        n_banks = len(banks)
+        expect = dict(dict.fromkeys(got, 0), fuzzy_lut=n_banks, fuzzy_lut_q8=n_banks)
+        if device.type == "cuda" and got != expect:
+            raise AssertionError(f"T={t}: launches {got}; expected {n_banks} fuzzy_lut and "
+                                 f"{n_banks} fuzzy_lut_q8 (one per bank per FFN call)")
+        with torch.no_grad():
+            y_g = pegasus_ffn_apply(ffn, x, path="gather")
+            y_g32 = pegasus_ffn_apply(ffn32, x, path="gather")
+        err = _close(y_k, y_g32, LM_FFN_TOL, f"FFN kernel vs gather (f32 LUT) T={t}")
+        if y_q.shape != y_k.shape or not torch.isfinite(y_q).all():
+            raise AssertionError(f"kernel_q8 FFN output {tuple(y_q.shape)} not finite")
+        bf16 = float((y_k - y_g).abs().max())
+        out["runs"][t] = dict(err=err, bf16_gather=bf16, q8_rel=rels, launches=got)
+        log(f"  T={t}: every bank launch bit-equal to its plain version, leaves exact; FFN "
+            f"kernel vs gather over the f32-upcast LUT max |diff| {err} (limit {LM_FFN_TOL}); "
+            f"vs gather over the bf16 LUT (bf16 result) {bf16:.3e}; kernel_q8 per-bank rel "
+            + ", ".join(f"{n} {r:.4f}" for n, r in rels.items())
+            + f" (< {Q8_BANK_REL}); launches {got}")
+
+    with torch.no_grad():
+        want = dense_ffn(held)
+        got_h = pegasus_ffn_apply(ffn, held, path="kernel")
+    rel = float(torch.linalg.norm(got_h - want) / torch.linalg.norm(want))
+    out["dense_rel"] = rel
+    log(f"  Pegasus FFN (kernel) vs the dense FFN on {held.shape[0]} held-out rows: relative "
+        f"error {rel:.4f} (printed only: the weights are random)")
+
+    out["times"] = []
+    for p in probs:
+        rec = dict(tag=p["tag"], name=p["name"], t=p["t"], err32=p["err32"], err8=p["err8"])
+        pb = dict(x=p["x"], features=p["f"], lut=p["lut"])
+        rec["bound32"] = bound_ms(*bank_bound(pb, p["leaves"], q8=False))
+        rec["bound8"] = bound_ms(*bank_bound(dict(pb, lut=p["q"]), p["leaves"], q8=True))
+        if time_it:
+            x, f, th, lut, q, sc, xb, w = (p[k] for k in ("x", "f", "th", "lut", "q", "sc",
+                                                          "xb", "w"))
+            kw = _budget(lambda: Q.fuzzy_lut_q8(x, f, th, q, sc))
+            rec["ms32"], rec["ms8"] = abba_ms(lambda: K.fuzzy_lut(x, f, th, lut),
+                                              lambda: Q.fuzzy_lut_q8(x, f, th, q, sc), **kw)
+            plain = lambda: K.fuzzy_lut_plain(x, f, th, lut)      # noqa: E731
+            rec["plain32"] = device_ms(plain, **_budget(plain))
+            plain8 = lambda: Q.fuzzy_lut_q8_plain(x, f, th, q, sc)  # noqa: E731
+            rec["plain8"] = device_ms(plain8, **_budget(plain8))
+            mm = lambda: torch.matmul(xb, w)                      # noqa: E731
+            rec["dense_ms"] = device_ms(mm, **_budget(mm))
+            log(f"  {rec['tag']}: f32 {rec['ms32']:.5f} ms, int8 {rec['ms8']:.5f} ms (in "
+                f"turns); bound f32 {rec['bound32'][0]:.6f} ms by {rec['bound32'][1]}, int8 "
+                f"{rec['bound8'][0]:.6f} ms by {rec['bound8'][1]}; plain f32 "
+                f"{rec['plain32']:.4f} ms, int8 {rec['plain8']:.4f} ms; the dense f32 product "
+                f"it replaces ([T, D] x [D, N], torch.matmul) {rec['dense_ms']:.5f} ms on {smi}")
+        out["times"].append(rec)
+    out["launches"] = launches
+    return out
+
+
+def _budget(fn) -> dict:
+    """device_ms arguments that keep one timing of ``fn`` near
+    :data:`LM_TIME_BUDGET_S`: one call timed once with CUDA events decides
+    the replays (and a single warm-up call for calls above 50 ms)."""
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    one = a.elapsed_time(b) / 1e3
+    if one < 1e-3:
+        return {}
+    reps = max(1, min(25, int(LM_TIME_BUDGET_S / one) - 4))
+    return dict(inner=1, reps=reps, warmup=1 if one > 0.05 else 3)
+
+
+def lm_smoke_archs(device) -> list:
+    """The other nine architectures at ``smoke_config``: ``forward_train``
+    and ``LM_SMOKE_STEPS`` decode steps on ``device`` against the port's own
+    CPU run on the same weights."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import ARCH_IDS, smoke_config
+    from repro_torch.models.transformer import (
+        decode_step, forward_train, init_decode_state, init_model,
+    )
+
+    cpu = torch.device("cpu")
+    recs = []
+    for arch in ARCH_IDS:
+        if arch == LM_ARCH:
+            continue
+        cfg = smoke_config(arch)
+        rng = np.random.default_rng(7)
+        b, s = LM_SMOKE_B, LM_SMOKE_S
+        arrays = {}
+        if cfg.encoder_layers:
+            arrays["embeds"] = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+            arrays["dec_tokens"] = rng.integers(0, cfg.vocab_size, (b, 16)).astype(np.int32)
+        elif cfg.frontend_stub:
+            arrays["embeds"] = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+        else:
+            arrays["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+        enc = (rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+               if cfg.encoder_layers else None)
+        toks = rng.integers(0, cfg.vocab_size, (LM_SMOKE_STEPS, b, 1)).astype(np.int32)
+        params_cpu = init_model(cfg, 0, dtype=torch.float32, device=cpu)
+        runs = {}
+        for dev, params in ((cpu, params_cpu), (device, copy.deepcopy(params_cpu).to(device))):
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+            with torch.no_grad():
+                logits, aux = forward_train(cfg, params, batch)
+                state = init_decode_state(cfg, b, 64, dtype=torch.float32, device=dev)
+                steps = []
+                for t in range(LM_SMOKE_STEPS):
+                    lg, state = decode_step(
+                        cfg, params, state, torch.as_tensor(toks[t], device=dev), t,
+                        enc_out=None if enc is None else torch.as_tensor(enc, device=dev))
+                    steps.append(lg)
+            runs[dev.type] = (logits.cpu(), aux.cpu(), torch.stack(steps).cpu(),
+                              {k: v.cpu() for k, v in state.items()})
+        (lc, ac, dc, sc), (lg, ag, dg, sg) = runs["cpu"], runs[device.type]
+        errs = [_close(lg, lc, LM_SMOKE_TOL, f"{arch} forward_train"),
+                _close(ag, ac, LM_SMOKE_TOL, f"{arch} aux"),
+                _close(dg, dc, LM_SMOKE_TOL, f"{arch} decode logits")]
+        errs += [_close(sg[k], sc[k], LM_SMOKE_TOL, f"{arch} state {k}") for k in sc]
+        recs.append((arch, cfg.family, max(errs)))
+        log(f"  {arch} ({cfg.family}) smoke: forward_train + {LM_SMOKE_STEPS} decode_steps "
+            f"(logits and every state tensor) on {device} vs the CPU: max |diff| "
+            f"{max(errs):.3e} (limit {LM_SMOKE_TOL})")
+    return recs
+
+
+def lm_phase(device, smi: str, *, rehearse: bool = False) -> dict:
+    """Phase 9: Qwen2-VL-2B through the LM stack's serving path, its last
+    FFN through the per-bank kernels, and the nine other architectures."""
+    import torch
+
+    from repro_torch.configs.registry import get_config, smoke_config
+
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must stay f32 on the LM path (no TF32)")
+    sizes = LM_REHEARSE if rehearse else LM_FULL
+    cfg = smoke_config(LM_ARCH) if rehearse else get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    dense = lm_dense(cfg, device, smi, **sizes)
+    peg = lm_pegasus(cfg, dense, device, smi, time_it=device.type == "cuda", **sizes)
+    smoke = lm_smoke_archs(device)
+    res = dict(dense={k: v for k, v in dense.items() if k not in ("params", "ffn_in")},
+               pegasus=peg, smoke=smoke, launches=peg["launches"],
+               seconds=time.perf_counter() - t0)
+    del dense
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1439,6 +1836,7 @@ def main(argv=None) -> int:
                                    baseline_steps=5, cnn_m_steps=3)
         audit_phase(res, fams, multi, refined, device, "the CPU (rehearsal)")
         dataplane_phase(res, fams, refined, device, "the CPU (rehearsal)")
+        lm_phase(device, "the CPU (rehearsal)", rehearse=True)
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -1526,16 +1924,34 @@ def main(argv=None) -> int:
     dataplane_phase(res, fams, refined, device, smi)
     log(f"phase 8 took {time.perf_counter() - t0:.2f} s")
 
+    log(f"the LM stack: {LM_ARCH} at its published width:")
+    lm = lm_phase(device, smi)
+    prof = lm["dense"]["profile"]
+    if prof is None:
+        log("profiler window (8 decode steps): device time not measured (the trace holds "
+            "no device events)")
+    else:
+        log(f"profiler window (8 decode steps of {LM_ARCH}, batch {LM_FULL['batch']}, {smi}): "
+            f"window {prof['window_us']:.1f} us, device busy {prof['busy_us']:.1f} us, idle "
+            f"share {prof['idle_share']:.4f}")
+        for name, us in list(prof["by_name"].items())[:25]:
+            log(f"  device {us:10.1f} us  {name[:110]}")
+    for rec in lm["pegasus"]["times"]:
+        for name, key in (("fuzzy_lut", "err32"), ("fuzzy_lut_q8", "err8")):
+            checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], rec[key])
+    log(f"phase 9 took {lm['seconds']:.2f} s")
+
     lines = []
     for name, source, replaces in KERNELS:
         rec = checks[name]
         launches = (res["launches"][name] + sum(f["launches"][name] for f in fams.values())
-                    + multi["launches"][name] + refined["launches"][name])
+                    + multi["launches"][name] + refined["launches"][name]
+                    + lm["launches"][name])
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=None))
+            bound_by=rec["bound_by"], library_ms=None, lm_launches=lm["launches"][name]))
     log(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

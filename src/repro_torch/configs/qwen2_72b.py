@@ -1,0 +1,8 @@
+"""Qwen2-72B [arXiv:2407.10671; hf]: GQA kv=8, QKV bias."""
+from repro_torch.configs.registry import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2_72b", family="dense",
+    num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8,
+    d_ff=29568, vocab_size=152064, qkv_bias=True,
+)

@@ -19,6 +19,9 @@ as paths ``kernel`` and ``kernel_q8``):
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
+import os
+from concurrent.futures import ProcessPoolExecutor
 from typing import Callable
 
 import numpy as np
@@ -32,7 +35,8 @@ from .fuzzy_tree import FuzzyTree, fit_tree, hard_index_stacked, soft_index_stac
 from .lut import build_matmul_lut
 from .quantization import choose_qspec, fake_quant_spec
 
-__all__ = ["PegasusLinear", "init_pegasus_linear", "init_pegasus_bank", "apply_gather",
+__all__ = ["PegasusLinear", "init_pegasus_linear", "init_pegasus_bank", "fit_group_trees",
+           "apply_gather",
            "apply_onehot", "apply_soft", "pegasus_linear_apply", "dense_reference"]
 
 
@@ -88,6 +92,40 @@ class PegasusLinear:
         return build_plan(self, backend=backend, **{"device": self.device, **kw})
 
 
+# A bank of at least this many groups fits its trees in worker processes (LM
+# FFN banks: hundreds to thousands of trees, minutes on one core); smaller
+# banks fit in this process, where starting workers would cost more. At most
+# _POOL_MAX_WORKERS workers start, each importing torch.
+_POOL_MIN_GROUPS = 256
+_POOL_MAX_WORKERS = 16
+
+
+def _fit_arrays(data: np.ndarray, depth: int) -> tuple[np.ndarray, ...]:
+    tree = fit_tree(data, depth)
+    return tree.features.numpy(), tree.thresholds.numpy(), tree.centroids.numpy()
+
+
+def fit_group_trees(calibration: np.ndarray, group_size: int, depth: int) -> FuzzyTree:
+    """One tree per group of ``group_size`` columns of ``calibration``
+    ``[S, D]``, stacked (CPU tensors). From :data:`_POOL_MIN_GROUPS` groups
+    on, the groups are fit in spawned processes, one per CPU;
+    ``fit_tree`` is deterministic numpy, so the trees are the serial
+    fit's, bit for bit."""
+    d = calibration.shape[1]
+    if d % group_size:
+        raise ValueError(f"D={d} not divisible by group v={group_size}")
+    groups = [calibration[:, g * group_size : (g + 1) * group_size]
+              for g in range(d // group_size)]
+    workers = min(os.cpu_count() or 1, _POOL_MAX_WORKERS)
+    if len(groups) < _POOL_MIN_GROUPS or workers < 2:
+        return stack_trees([fit_tree(x, depth) for x in groups])
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        fitted = list(pool.map(_fit_arrays, groups, [depth] * len(groups),
+                               chunksize=-(-len(groups) // (4 * workers))))
+    return FuzzyTree(*(torch.from_numpy(np.stack(parts)) for parts in zip(*fitted)))
+
+
 def init_pegasus_linear(
     weight: np.ndarray,
     bias: np.ndarray | None,
@@ -111,14 +149,10 @@ def init_pegasus_linear(
     dev = resolve_device(device)
     weight = np.asarray(weight, np.float32)
     calibration = np.asarray(calibration, np.float32)
-    d, _ = weight.shape
-    if d % group_size:
-        raise ValueError(f"D={d} not divisible by group v={group_size}")
-    k = d // group_size
-    stacked = stack_trees([
-        fit_tree(calibration[:, g * group_size : (g + 1) * group_size], depth)
-        for g in range(k)
-    ]).to(dev)
+    if weight.shape[0] != calibration.shape[1]:
+        raise ValueError(f"weight {weight.shape} does not take calibration rows "
+                         f"of width {calibration.shape[1]}")
+    stacked = fit_group_trees(calibration, group_size, depth).to(dev)
     cents = stacked.centroids
     if act_fn is not None:
         cents = act_fn(cents)
@@ -152,15 +186,8 @@ def init_pegasus_bank(
     ``relu(c@W+b)`` may live in the rows directly).
     """
     dev = resolve_device(device)
-    calibration = np.asarray(calibration, np.float32)
-    d = calibration.shape[1]
-    if d % group_size:
-        raise ValueError(f"D={d} not divisible by group v={group_size}")
-    k = d // group_size
-    stacked = stack_trees([
-        fit_tree(calibration[:, g * group_size : (g + 1) * group_size], depth)
-        for g in range(k)
-    ]).to(dev)
+    stacked = fit_group_trees(np.asarray(calibration, np.float32), group_size, depth).to(dev)
+    k = stacked.features.shape[0]
     lut = fn(stacked.centroids).to(torch.float32)
     if lut.dim() != 3 or tuple(lut.shape[:2]) != (k, 2**depth):
         raise ValueError(f"fn returned rows of shape {tuple(lut.shape)}; "
@@ -181,6 +208,8 @@ def apply_gather(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
     xg = _group(x.to(torch.float32), p.num_groups, p.group_size)
     idx = hard_index_stacked(p.trees, xg).reshape(-1, p.num_groups)
     y = lut_gather_sum(p.lut, idx).reshape(*x.shape[:-1], p.out_features)
+    # the reference sums a bf16 LUT's rows to a bf16 result, then upcasts
+    y = y.to(p.lut.dtype).to(torch.float32)
     if p.bias is not None:
         y = y + p.bias
     return y

@@ -11,10 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from torch import nn
+
+from repro_torch.configs.registry import ArchConfig
 from repro_torch.core.amm import PegasusLinear
 from repro_torch.core.fuzzy_tree import FuzzyTree
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fuzzy_lut.ops import check_features
+from repro_torch.models.layers import Params
+from repro_torch.models.pegasus_layer import PegasusFFN
+from repro_torch.models.transformer import FFN
 from repro_torch.nets.autoencoder import AEBanks, AutoEncoder
 from repro_torch.nets.baselines.bos import BoS
 from repro_torch.nets.baselines.leo import LeoTree, _Node
@@ -27,11 +33,21 @@ __all__ = ["pegasus_linear_from_arrays", "banks_from_arrays", "mlp_from_arrays",
            "rnn_from_arrays", "cnn_from_arrays", "cnn_l_from_arrays",
            "ae_banks_from_arrays", "rnn_teacher_from_arrays", "cnn_teacher_from_arrays",
            "cnn_l_teacher_from_arrays", "ae_from_arrays", "n3ic_from_arrays",
-           "bos_from_arrays", "leo_from_arrays"]
+           "bos_from_arrays", "leo_from_arrays", "lm_params_from_arrays",
+           "pegasus_ffn_from_arrays"]
 
 
 def _t(a, dtype, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=dtype), device=dev)
+
+
+def _t_as_is(a, dev) -> torch.Tensor:
+    """A tensor of the array's own float type: f32, or bf16 for an array
+    whose dtype is named ``bfloat16`` (exact through f32)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _t(a, np.float32, dev).to(torch.bfloat16)
+    return torch.tensor(a, device=dev)
 
 
 def pegasus_linear_from_arrays(features, thresholds, centroids, lut, bias,
@@ -176,3 +192,49 @@ def leo_from_arrays(feature, threshold, left, right, label, num_classes: int) ->
                    label=int(lab))
              for f, t, lo, r, lab in zip(feature, threshold, left, right, label)]
     return LeoTree(nodes=nodes, num_classes=int(num_classes))
+
+
+# ---------------------------------------------------------------------------
+# The LM stack
+# ---------------------------------------------------------------------------
+
+
+def lm_params_from_arrays(cfg: ArchConfig, params: dict,
+                          device: str | torch.device = "cuda") -> Params:
+    """An LM (:mod:`repro_torch.models.transformer`) from the reference's
+    parameter tree as numpy arrays: nested dicts under the same keys, each
+    per-layer array stacked over a leading ``[L, ...]`` axis (``layers``,
+    ``enc_layers``). Every array keeps its float type (f32 or bf16)."""
+    dev = resolve_device(device)
+
+    def block(tree: dict, l: int | None, name: str = "") -> Params:
+        entries = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                entries[key] = block(value, l, key)
+            else:
+                entries[key] = _t_as_is(value if l is None else np.asarray(value)[l], dev)
+        return FFN(cfg.act, **entries) if name == "ffn" else Params(**entries)
+
+    depth = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers}
+    top = {}
+    for key, value in params.items():
+        if key in depth:
+            top[key] = nn.ModuleList(block(value, l) for l in range(depth[key]))
+        else:
+            top[key] = _t_as_is(value, dev)
+    return Params(**top)
+
+
+def pegasus_ffn_from_arrays(w_in: dict, w_gate: dict | None, w_out: dict, act: str,
+                            device: str | torch.device = "cuda") -> PegasusFFN:
+    """A PegasusFFN from its banks, each a dict as for
+    :func:`pegasus_linear_from_arrays`; each LUT keeps its float type (the
+    reference's LM banks hold bf16 LUTs)."""
+    def bank(arrays: dict) -> PegasusLinear:
+        b = pegasus_linear_from_arrays(**arrays, device=device)
+        b.lut = _t_as_is(arrays["lut"], b.lut.device)
+        return b
+
+    return PegasusFFN(w_in=bank(w_in), w_gate=None if w_gate is None else bank(w_gate),
+                      w_out=bank(w_out), act=act)

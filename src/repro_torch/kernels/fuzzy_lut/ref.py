@@ -42,15 +42,16 @@ def lut_gather_sum(lut: torch.Tensor, leaves: torch.Tensor,
 
     ``lut`` is ``[K, C, N]`` (f32, or int8 codes with per-group f32
     ``scales [K]``: each term is ``float(q) * s_k``). Returns ``[T, N]`` f32.
+    One group's ``[T, N]`` rows at a time: no ``[T, K, N]`` intermediate,
+    so the plain version runs at LM widths (K·N in the millions).
     """
-    k = lut.shape[0]
-    rows = lut[torch.arange(k, device=lut.device), leaves].to(torch.float32)
-    if scales is not None:
-        rows = rows * scales[:, None]                   # [T, K, N]
     acc = torch.zeros((leaves.shape[0], lut.shape[2]), dtype=torch.float32,
                       device=lut.device)
-    for j in range(k):
-        acc = acc + rows[:, j]
+    for j in range(lut.shape[0]):
+        row = lut[j, leaves[:, j]].to(torch.float32)
+        if scales is not None:
+            row = row * scales[j]
+        acc = acc + row
     return acc
 
 

@@ -1,5 +1,5 @@
-"""Serving entry points of the port (port of the Pegasus half of
-``repro.launch.serve``).
+"""Serving entry points of the port (port of ``repro.launch.serve``, less
+its sharded mesh serving).
 
 ``PegasusServer`` compiles ONE model's plan once (int32 features, LUTs, int8
 LUT + scales on the GPU) and serves request lists: requests are coalesced,
@@ -20,9 +20,14 @@ makes it an always-on service: a background drain thread, thread-safe
 queues with reject/block backpressure. On the card every plan call replays
 a CUDA graph (see :class:`~repro_torch.engine.plan.ExecutionPlan`).
 
-Run the demo on the GPU::
+``Server`` is the LM half: batched greedy decode of one model from the LM
+stack (:mod:`repro_torch.models`) against preallocated caches, with
+``make_serve_step`` / ``make_prefill_step`` as its units.
+
+Run the demos on the GPU::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --pegasus --backend kernel_q8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_2b [--smoke]
 """
 
 from __future__ import annotations
@@ -40,9 +45,13 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.sanitizer import ThreadAffinity, make_lock
+from repro_torch.configs.registry import ArchConfig, get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.engine import DEFAULT_BUCKETS, PlanRegistry, bucket_chunks, build_plan
 from repro_torch.engine.plan import resolve_devices
+from repro_torch.models.transformer import (
+    decode_step, forward_train, init_decode_state, init_model,
+)
 
 from .chaos import InjectedFaultError
 from .devices import DeviceStreamPool
@@ -52,7 +61,7 @@ from .scheduler import (
     PRIORITY_WEIGHTS, DeadlineExceededError, QueueFullError, WFQScheduler,
 )
 
-__all__ = ["PegasusServer", "MultiModelServer", "AsyncMultiModelServer",
+__all__ = ["Server", "make_serve_step", "make_prefill_step", "PegasusServer", "MultiModelServer", "AsyncMultiModelServer",
            "PartialDrainError", "QueueFullError", "DeadlineExceededError",
            "PRIORITY_WEIGHTS", "InferRequest", "InferResult", "DeviceStreamPool",
            "ServerStoppedError", "PoisonedRequestError", "FALLBACK_BACKEND", "main"]
@@ -184,6 +193,61 @@ def _split(out: torch.Tensor, sizes: list[int]) -> list[np.ndarray]:
     """Cut a coalesced output back into per-request numpy arrays."""
     host = out.cpu().numpy()
     return np.split(host, np.cumsum(sizes)[:-1], axis=0)
+
+
+def make_serve_step(cfg: ArchConfig):
+    """One greedy decode step for the whole batch: ``(params, state, tokens
+    [B,1], pos) → (next tokens [B,1] int32, state)``; the state is updated
+    in place."""
+    @torch.no_grad()
+    def serve_step(params, state, tokens, pos: int, enc_out=None):
+        logits, state = decode_step(cfg, params, state, tokens, pos, enc_out=enc_out)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], state
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ArchConfig, *, last_only: bool = True):
+    """``(params, batch) → greedy next token [B] int32`` after the prompt."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, _ = forward_train(cfg, params, batch, last_only=last_only)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    return prefill_step
+
+
+class Server:
+    """Minimal batched greedy-decode server for one LM.
+
+    ``params`` takes weights carried across with
+    :func:`repro_torch.interop.lm_params_from_arrays` (moved to ``device``);
+    without it the model is drawn from a generator seeded 0 on ``device``,
+    as the reference initialises from ``PRNGKey(0)`` (other numbers).
+    """
+
+    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
+                 kv_len: int = 512, batch_size: int = 8, dtype=torch.float32,
+                 params=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = (init_model(cfg, 0, dtype=dtype, device=self.device)
+                       if params is None else params.to(self.device))
+        self.state = init_decode_state(cfg, batch_size, kv_len, dtype=dtype,
+                                       device=self.device)
+        self.batch_size = batch_size
+        self._step = make_serve_step(cfg)
+
+    def generate(self, prompt_tokens: np.ndarray, max_new: int = 16) -> np.ndarray:
+        """Greedy continuation for a batch of single-token prompts:
+        ``[B, 1 + max_new]`` int32, the prompt first."""
+        toks = torch.as_tensor(np.asarray(prompt_tokens)[:, :1], dtype=torch.int32,
+                               device=self.device)
+        out = [toks]
+        for t in range(max_new):
+            toks, self.state = self._step(self.params, self.state, toks, t)
+            out.append(toks)
+        return torch.cat(out, dim=1).cpu().numpy()
 
 
 class PegasusServer:
@@ -1143,8 +1207,23 @@ def _pegasus_demo(args) -> None:
           f"hits over {st['jit_calls']} calls; buckets={st['buckets']}")
 
 
+def _lm_demo(args) -> None:
+    """--arch: greedy decode with :class:`Server` from single-token prompts."""
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    server = Server(cfg, device=args.device, batch_size=args.batch)
+    prompts = np.ones((args.batch, 1), np.int32)
+    t0 = time.perf_counter()
+    out = server.generate(prompts, max_new=args.max_new)
+    dt = time.perf_counter() - t0
+    print(f"generated {out.shape} in {dt:.2f}s "
+          f"({args.batch * args.max_new / dt:.1f} tok/s, device={server.device})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None, help="serve this LM config with Server")
+    ap.add_argument("--smoke", action="store_true", help="the arch's tiny smoke config")
+    ap.add_argument("--max-new", type=int, default=16, help="tokens to generate")
     ap.add_argument("--pegasus", action="store_true",
                     help="serve a pegasusified MLP-B via the execution engine")
     ap.add_argument("--backend", default="onehot",
@@ -1152,13 +1231,17 @@ def main(argv=None):
                     help="engine backend bound to the serving plan")
     ap.add_argument("--no-fuse", action="store_true",
                     help="disable cross-bank primitive fusion")
-    ap.add_argument("--batch", type=int, default=4, help="flows per request")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="flows per request (--pegasus) or sequences (--arch)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cpu runs the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if not args.pegasus:
-        ap.error("only --pegasus is ported; the LM server comes with a later slice")
-    _pegasus_demo(args)
+    if args.pegasus:
+        _pegasus_demo(args)
+        return
+    if args.arch is None:
+        ap.error("--arch is required unless --pegasus is given")
+    _lm_demo(args)
 
 
 if __name__ == "__main__":

@@ -225,10 +225,12 @@ def test_port_imports_no_jax():
         "          'analysis.sanitizer', 'launch.health', 'launch.scheduler',\n"
         "          'launch.chaos', 'launch.devices', 'launch.serve', 'core.finetune',\n"
         "          'core.primitives', 'core.syntax', 'core.fusion',\n"
-        "          'nets.baselines.n3ic', 'nets.baselines.bos', 'nets.baselines.leo'):\n"
+        "          'nets.baselines.n3ic', 'nets.baselines.bos', 'nets.baselines.leo',\n"
+        "          'models.transformer', 'models.pegasus_layer', 'configs.registry',\n"
+        "          'configs.qwen2_vl_2b'):\n"
         "    assert 'repro_torch.' + n in sys.modules, n\n"
         "serve = sys.modules['repro_torch.launch.serve']\n"
-        "assert serve.MultiModelServer and serve.AsyncMultiModelServer\n"
+        "assert serve.MultiModelServer and serve.AsyncMultiModelServer and serve.Server\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})

@@ -523,3 +523,71 @@ def test_pegasus_linear_apply_kernel_launches(dev):
         assert {k: c for k, c in _lib.LAUNCHES.items() if c} == {name: 1}, path
         if path == "kernel":
             assert torch.equal(out, ref)
+
+
+def test_lm_width_bank_kernels_match_plain(dev):
+    """A Pegasus FFN bank wider than any family's: K = 1040 groups of v=4
+    (trees read through L1) and N = 1100 columns (35 warp chunks), a bf16
+    LUT as the LM banks hold. Each kernel bit-equal to its plain version,
+    leaves exact; the FFN-level path equals gather over the LUT upcast to
+    f32."""
+    import dataclasses
+
+    from repro_torch.core.amm import PegasusLinear, pegasus_linear_apply
+    from repro_torch.core.fuzzy_tree import FuzzyTree
+    from repro_torch.kernels.fuzzy_lut import ops
+
+    rng = np.random.default_rng(11)
+    t, k, v, depth, n = 40, 1040, 4, 4, 1100
+    x, f, th, lut = _bank(rng, t, k, v, depth, n, dev)
+    trees = FuzzyTree(features=f, thresholds=th,
+                      centroids=torch.zeros((k, 2**depth, v), device=dev))
+    bank = PegasusLinear(trees=trees, lut=lut.to(torch.bfloat16), bias=None, group_size=v)
+    xg = x.contiguous()
+    for quant, kern, plain in ((False, K.fuzzy_lut, K.fuzzy_lut_plain),
+                               (True, Q.fuzzy_lut_q8, Q.fuzzy_lut_q8_plain)):
+        feats, thr, table, scales = ops.padded_layout(bank, quant=quant)
+        args = (xg, feats, thr, table) + ((scales,) if quant else ())
+        y, lv = kern(*args, return_leaves=True)
+        wy, wl = plain(*args)
+        assert torch.equal(lv.long(), wl)
+        assert torch.equal(y, wy)
+    f32 = dataclasses.replace(bank, lut=bank.lut.float())
+    _lib.reset_launches()
+    out = pegasus_linear_apply(bank, x.reshape(t, k * v), path="kernel")
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["fuzzy_lut"] == 1
+    assert torch.equal(out, pegasus_linear_apply(f32, x.reshape(t, k * v), path="gather"))
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "hymba_1_5b", "xlstm_1_3b", "phi3_5_moe"])
+def test_smoke_lm_decodes_on_cuda_like_cpu(dev, arch):
+    """The smoke LM on the card against the port's own CPU run on the same
+    weights: forward_train and 4 decode steps within 1e-4 (f32 sums in
+    another order), and Server.generate's tokens equal."""
+    import copy
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.transformer import decode_step, forward_train, init_decode_state
+    from repro_torch.models.transformer import init_model
+
+    cfg = smoke_config(arch)
+    cpu = torch.device("cpu")
+    params = {"cpu": init_model(cfg, 0, dtype=torch.float32, device=cpu)}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to(dev)
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    outs = {}
+    for name, d in (("cpu", cpu), ("cuda", dev)):
+        toks = torch.as_tensor(tokens, device=d)
+        with torch.no_grad():
+            logits, _ = forward_train(cfg, params[name], {"tokens": toks})
+            state = init_decode_state(cfg, 2, 16, dtype=torch.float32, device=d)
+            steps = [decode_step(cfg, params[name], state, toks[:, t : t + 1], t)[0]
+                     for t in range(4)]
+        gen = Server(cfg, device=d, kv_len=16, batch_size=2,
+                     params=params[name]).generate(tokens[:, :1], max_new=6)
+        outs[name] = (logits.cpu(), torch.stack(steps).cpu(), gen)
+    for got, want in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(outs["cuda"][2], outs["cpu"][2])
