@@ -82,7 +82,22 @@ Phases (any failure exits nonzero; none is caught and passed over):
      bound, its plain version and the dense product it replaces; then the
      nine other architectures at ``smoke_config`` on the card against the
      port's own CPU run (1e-4);
- 10. a ``{"kernels": [...]}`` line, then the device line as the last line.
+ 10. the LM training path: Qwen2-VL-2B at its published width in f32
+     (1.544 B parameters, no TF32) trained 6 steps of 8 x 1024 tokens
+     through ``TrainLoop`` with the reference's default remat
+     (``"nothing"``): loss and grad_norm per step (finite), seconds per
+     step, tokens/s, 6·N·T per second against the f32 peak, peak memory, a
+     ``torch.profiler`` window over one more step; the same width cut to 2
+     layers, two train steps at a constant learning rate on the card
+     against the CPU (loss, grad_norm, every gradient, m, v and the change
+     of every parameter within the limits of ``TRAIN_*``), and, at 8 x 1024
+     tokens, remat ``"nothing"``/``"dots"``/none against each other with
+     the peak memory each adds; the reference's crash-recovery test on
+     ``smoke_config``; an ``AsyncCheckpointer`` save and a
+     ``restore`` of the 2-layer state (bit-equal; bytes and seconds); the
+     nine other architectures at ``smoke_config``, 2 train steps on the
+     card against the CPU;
+ 11. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -1805,6 +1820,322 @@ def lm_phase(device, smi: str, *, rehearse: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the LM training path, Qwen2-VL-2B at its published width
+# ---------------------------------------------------------------------------
+
+# full size: 8 x 1024 tokens (phase 9's prefill shape), the reference's
+# default remat ("nothing"), 6 steps through TrainLoop, then one profiled
+TRAIN_FULL = dict(batch=8, seq=1024, steps=6, cut_layers=2, cut_batch=2, cut_seq=64,
+                  cut_steps=2)
+TRAIN_REHEARSE = dict(batch=2, seq=64, steps=3, cut_layers=2, cut_batch=2, cut_seq=16,
+                      cut_steps=2)
+# card vs CPU on train steps: f32 sums in another order (cuBLAS vs the
+# CPU's BLAS, K up to 8,960), ~1e-6 relative per value. Loss and grad_norm
+# relative; grads and m by relative L2 per leaf; v holds squares, so twice
+# the relative error. Both devices step at one constant learning rate,
+# TRAIN_LR (the default schedule's peak; its warmup starts at 0), and per
+# leaf the change the steps made to the params is held by relative L2: a
+# weight the steps did not move is off by 1. Adam's first update,
+# g/(|g| + eps), passes on the relative error of each gradient element
+# near eps whatever the learning rate: 1.4e-3 on Granite's wk after one step
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_V_REL, TRAIN_MOVE_REL = 1e-5, 1e-4, 2e-4, 1e-2
+TRAIN_LR = 3e-4
+# the remat policies against each other: the same products recomputed
+TRAIN_REMAT_REL = 1e-6
+# crash recovery: the reference's own limits (tests/test_runtime.py)
+RECOVERY_RTOL, RECOVERY_ATOL = 1e-5, 1e-6
+TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_STEPS = 2, 16, 2
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+
+    got, want = got.detach().cpu().to(torch.float64), want.detach().cpu().to(torch.float64)
+    den = float(torch.linalg.vector_norm(want))
+    num = float(torch.linalg.vector_norm(got - want))
+    return num / den if den > 0 else num
+
+
+def _held(errs: dict, limit: float, what: str) -> float:
+    """Max of ``errs`` (name -> error); raises when one exceeds ``limit``."""
+    bad = {k: e for k, e in errs.items() if not e <= limit}
+    if bad:
+        worst = max(bad, key=bad.get)
+        raise AssertionError(f"{what}: {len(bad)} leaves above {limit}, worst {worst} "
+                             f"{bad[worst]:.3e}")
+    return max(errs.values(), default=0.0)
+
+
+def train_compare(cfg, devices, *, batch: int, seq: int, steps: int) -> dict:
+    """``steps`` train steps of ``cfg`` at the learning rate ``TRAIN_LR``
+    from the same weights (drawn on the CPU from seed 0) and the same
+    ``synthetic_batches`` on each of the two ``devices``: loss, grad_norm,
+    gradients, m, v and what the steps so far moved each parameter, held
+    at every step."""
+    import copy
+
+    import torch
+
+    from repro_torch.launch.train import loss_and_grads, make_train_step, synthetic_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train.optimizer import adamw_init
+
+    base = init_model(cfg, 0, dtype=torch.float32, device=torch.device("cpu"))
+    before = {k: p.detach().clone() for k, p in base.named_parameters()}
+    runs = {}
+    for dev in devices:
+        params = copy.deepcopy(base).to(dev).requires_grad_(True)
+        opt = adamw_init(dict(params.named_parameters()))
+        step = make_train_step(cfg, lr_fn=lambda _step: TRAIN_LR)
+        batches = synthetic_batches(cfg, batch, seq, seed=3)
+        rec = []
+        for _ in range(steps):
+            b = {k: v.to(dev) for k, v in next(batches).items()}
+            _, grads = loss_and_grads(cfg, params, b)
+            params, opt, m = step(params, opt, b)
+            rec.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                            grads={k: g.cpu() for k, g in grads.items()},
+                            m={k: t.cpu() for k, t in opt.m.items()},
+                            v={k: t.cpu() for k, t in opt.v.items()},
+                            moved={k: p.detach().cpu() - before[k]
+                                   for k, p in params.named_parameters()}))
+        runs[dev] = rec
+        del params, opt
+    want, got = runs[devices[0]], runs[devices[1]]
+    out = dict(loss=0.0, grad_norm=0.0, losses=[r["loss"] for r in got])
+    for i, (w, g) in enumerate(zip(want, got)):
+        for key, tol in (("loss", TRAIN_LOSS_RTOL), ("grad_norm", TRAIN_GRAD_REL)):
+            err = abs(g[key] - w[key]) / abs(w[key])
+            if not (err <= tol and torch.isfinite(torch.tensor(g[key]))):
+                raise AssertionError(f"{cfg.name} step {i} {key}: {g[key]} vs {w[key]} "
+                                     f"(relative {err:.3e}, limit {tol})")
+            out[key] = max(out[key], err)
+        if not all(float(torch.linalg.vector_norm(t)) > 0 for t in w["moved"].values()):
+            raise AssertionError(f"{cfg.name} step {i} left a parameter where it was")
+        for key, tol in (("grads", TRAIN_GRAD_REL), ("m", TRAIN_GRAD_REL), ("v", TRAIN_V_REL),
+                         ("moved", TRAIN_MOVE_REL)):
+            out[key] = max(out.get(key, 0.0), _held(
+                {k: _rel_l2(g[key][k], w[key][k]) for k in w[key]}, tol,
+                f"{cfg.name} step {i} {key} (relative L2)"))
+    return out
+
+
+def remat_compare(cfg, device, *, batch: int, seq: int) -> dict:
+    """``loss_and_grads`` under remat ``"nothing"``, ``"dots"`` and none on
+    ``device``, from the same weights and batch: equal values (bit-equality
+    reported), and the peak memory each call adds to what was allocated
+    before it (the earlier calls' gradients stay allocated)."""
+    import torch
+
+    from repro_torch.launch.train import loss_and_grads, synthetic_batches
+    from repro_torch.models.transformer import init_model
+
+    params = init_model(cfg, 0, dtype=torch.float32, device=device).requires_grad_(True)
+    b = {k: v.to(device) for k, v in next(synthetic_batches(cfg, batch, seq, seed=3)).items()}
+    runs, peaks = {}, {}
+    for policy in ("nothing", "dots", "none"):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        runs[policy] = loss_and_grads(cfg, params, b, remat_policy=policy)
+        if device.type == "cuda":
+            peaks[policy] = torch.cuda.max_memory_allocated() - before
+    loss0, g0 = runs["nothing"]
+    out = dict(peaks=peaks, bit_equal={})
+    for policy in ("dots", "none"):
+        loss, g = runs[policy]
+        errs = {k: _rel_l2(g[k], g0[k]) for k in g0}
+        errs["loss"] = abs(float(loss) - float(loss0)) / abs(float(loss0))
+        out[policy] = _held(errs, TRAIN_REMAT_REL, f"remat {policy!r} vs 'nothing'")
+        out["bit_equal"][policy] = bool(torch.equal(loss, loss0)) and all(
+            torch.equal(g[k], g0[k]) for k in g0)
+    return out
+
+
+def crash_recovery(cfg, device) -> float:
+    """The reference's crash-recovery test on ``device``: 6 steps straight
+    against 3 steps, a fresh ``TrainLoop`` that restores, and 3 more; every
+    parameter within its limits. Returns the max |diff|."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.train import TrainLoop, synthetic_batches
+    from repro_torch.train.checkpoint import latest_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = TrainLoop(cfg, device=device, ckpt_dir=f"{tmp}/a", ckpt_every=100)
+        loop.run(synthetic_batches(cfg, 2, 16, seed=0), steps=6)
+        straight = {k: p.detach().cpu() for k, p in loop.params.named_parameters()}
+        del loop
+        first = TrainLoop(cfg, device=device, ckpt_dir=f"{tmp}/b", ckpt_every=3)
+        first.run(synthetic_batches(cfg, 2, 16, seed=0), steps=3)
+        del first                                  # the "crash"
+        loop = TrainLoop(cfg, device=device, ckpt_dir=f"{tmp}/b", ckpt_every=100)
+        if loop.start_step != 3:
+            raise AssertionError(f"restored at step {loop.start_step}, not 3")
+        gen = synthetic_batches(cfg, 2, 16, seed=0)
+        for _ in range(3):
+            next(gen)
+        loop.run(gen, steps=3)
+        if latest_step(f"{tmp}/b") != 6:
+            raise AssertionError(f"last checkpoint {latest_step(f'{tmp}/b')}, not 6")
+        resumed = {k: p.detach().cpu() for k, p in loop.params.named_parameters()}
+    for k, want in straight.items():
+        torch.testing.assert_close(resumed[k], want, rtol=RECOVERY_RTOL, atol=RECOVERY_ATOL)
+    return max(float((resumed[k] - straight[k]).abs().max()) for k in straight)
+
+
+def checkpoint_roundtrip(cfg, device) -> dict:
+    """One train step of ``cfg`` on ``device``, one ``AsyncCheckpointer``
+    save of (params, AdamWState) and one ``restore`` into fresh tensors:
+    bit-equal. Returns bytes and seconds."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.train import make_train_step, synthetic_batches
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train.checkpoint import AsyncCheckpointer, restore
+    from repro_torch.train.optimizer import adamw_init
+
+    params = init_model(cfg, 0, dtype=torch.float32, device=device)
+    params.requires_grad_(True)
+    opt = adamw_init(dict(params.named_parameters()))
+    b = {k: v.to(device) for k, v in next(synthetic_batches(cfg, 2, 16, seed=3)).items()}
+    params, opt, _ = make_train_step(cfg)(params, opt, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        _sync(device)
+        t0 = time.perf_counter()
+        ck = AsyncCheckpointer(tmp)
+        ck.save(1, (params, opt))
+        handed = time.perf_counter() - t0
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        nbytes = sum(e.stat().st_size for e in os.scandir(f"{tmp}/step_1"))
+        fresh = init_model(cfg, 1, dtype=torch.float32, device=device)
+        t0 = time.perf_counter()
+        (got, got_opt), step = restore(tmp, (fresh, adamw_init(dict(fresh.named_parameters()))))
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+    named = dict(params.named_parameters())
+    pairs = [(got_opt.step, opt.step)] + [
+        (dict(got.named_parameters())[k], named[k]) for k in named] + [
+        (got_opt.m[k], opt.m[k]) for k in named] + [(got_opt.v[k], opt.v[k]) for k in named]
+    if step != 1 or not all(torch.equal(a, w) and a.device == w.device for a, w in pairs):
+        raise AssertionError("the restored checkpoint is not bit-equal to what was saved")
+    return dict(bytes=nbytes, tensors=len(pairs), handed_s=handed, save_s=save_s,
+                restore_s=restore_s)
+
+
+def train_phase(device, smi: str, *, rehearse: bool = False) -> dict:
+    """Phase 10: Qwen2-VL-2B trained through ``TrainLoop`` at its published
+    width; card against CPU, remat, crash recovery and a checkpoint on a
+    2-layer cut; the nine other architectures card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config, smoke_config
+    from repro_torch.launch.train import TrainLoop, synthetic_batches
+
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must stay f32 on the LM path (no TF32)")
+    sizes = TRAIN_REHEARSE if rehearse else TRAIN_FULL
+    cfg = smoke_config(LM_ARCH) if rehearse else get_config(LM_ARCH)
+    cpu, cuda = torch.device("cpu"), device.type == "cuda"
+    t_phase = time.perf_counter()
+
+    # (a) the published width through TrainLoop
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = TrainLoop(cfg, device=device, ckpt_dir=None, remat_policy="nothing",
+                     dtype=torch.float32, seed=0)
+    _sync(device)
+    n_params = sum(p.numel() for p in loop.params.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers, {n_params} f32 parameters, params + "
+        f"AdamW state drawn on {device} in {time.perf_counter() - t0:.2f} s")
+    batches = synthetic_batches(cfg, sizes["batch"], sizes["seq"], seed=0)
+    steps = []
+    for _ in range(sizes["steps"]):
+        m = loop.run(batches, 1)
+        steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          s=loop.step_times[-1]))
+    if not all(torch.isfinite(torch.tensor([s["loss"], s["grad_norm"]])).all() for s in steps):
+        raise AssertionError(f"non-finite loss or grad_norm: {steps}")
+    tokens = sizes["batch"] * sizes["seq"]
+    step_s = float(sorted(s["s"] for s in steps[1:])[(len(steps) - 1) // 2])
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    rate = 6 * n_params * tokens / step_s
+    for i, s in enumerate(steps):
+        log(f"  step {i}: loss {s['loss']:.6f}, grad_norm {s['grad_norm']:.6f}, "
+            f"{s['s']:.4f} s")
+    log(f"  {cfg.name} trained {sizes['batch']} x {sizes['seq']} tokens a step, f32, remat "
+        f"'nothing': median {step_s:.4f} s per step (steps 1-{len(steps) - 1}; step 0 "
+        f"{steps[0]['s']:.4f} s), {tokens / step_s:.1f} tokens/s, 6·N·T/step "
+        f"{rate / 1e12:.2f} TFLOP/s = {rate / F32_OPS_PER_S:.4f} of the f32 (non-tensor) "
+        f"peak {F32_OPS_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{'not measured' if peak is None else f'{peak} B ({peak / 2**30:.2f} GiB)'} "
+        f"(host clock ending in a sync) on {smi}")
+    nxt = next(batches)
+    prof = profile_fn(lambda: loop.run(iter([nxt]), 1)) if cuda else None
+    del loop
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) a 2-layer cut at the published width: card against CPU, remat
+    cut = dataclasses.replace(cfg, num_layers=sizes["cut_layers"])
+    kw = dict(batch=sizes["cut_batch"], seq=sizes["cut_seq"])
+    cmp = train_compare(cut, (cpu, device), steps=sizes["cut_steps"], **kw)
+    log(f"  {cut.name} cut to {cut.num_layers} layers, {sizes['cut_steps']} train steps of "
+        f"{kw['batch']} x {kw['seq']} at lr {TRAIN_LR} on {device} vs the CPU: losses "
+        f"{[round(x, 6) for x in cmp['losses']]} (relative {cmp['loss']:.3e}, limit "
+        f"{TRAIN_LOSS_RTOL}), grad_norm {cmp['grad_norm']:.3e}, grads {cmp['grads']:.3e}, m "
+        f"{cmp['m']:.3e} (limit {TRAIN_GRAD_REL}), v {cmp['v']:.3e} (limit {TRAIN_V_REL}), "
+        f"change of the params {cmp['moved']:.3e} (limit {TRAIN_MOVE_REL}); relative L2 "
+        f"per leaf, max")
+    remat = remat_compare(cut, device, batch=sizes["batch"], seq=sizes["seq"])
+    peaks = ", ".join(f"{k} {v} B ({v / 2**30:.2f} GiB)" for k, v in remat["peaks"].items())
+    log(f"  remat on {device}, {cut.num_layers} layers, {sizes['batch']} x {sizes['seq']} "
+        f"tokens: 'dots' {remat['dots']:.3e}, none {remat['none']:.3e} against 'nothing' "
+        f"(relative L2, limit {TRAIN_REMAT_REL}; bit-equal {remat['bit_equal']}); peak memory "
+        f"added by loss_and_grads: {peaks or 'not measured'} on {smi}")
+
+    # (c) crash recovery, (d) the 2-layer state checkpointed
+    rec_err = crash_recovery(smoke_config(LM_ARCH), device)
+    log(f"  crash recovery on {device}: 6 steps straight vs 3 + restore + 3, max |diff| "
+        f"{rec_err:.3e} (rtol {RECOVERY_RTOL}, atol {RECOVERY_ATOL})")
+    ck = checkpoint_roundtrip(cut, device)
+    log(f"  checkpoint of the {cut.num_layers}-layer state ({ck['tensors']} tensors, "
+        f"{ck['bytes']} B on disk): AsyncCheckpointer.save returned in {ck['handed_s']:.3f} s, "
+        f"written in {ck['save_s']:.3f} s ({ck['bytes'] / ck['save_s'] / 1e9:.3f} GB/s); "
+        f"restore {ck['restore_s']:.3f} s; bit-equal, on {smi}")
+
+    # (e) the nine other architectures
+    smoke = []
+    for arch in ARCH_IDS:
+        if arch == LM_ARCH:
+            continue
+        scfg = smoke_config(arch)
+        r = train_compare(scfg, (cpu, device), batch=TRAIN_SMOKE_B, seq=TRAIN_SMOKE_S,
+                          steps=TRAIN_SMOKE_STEPS)
+        smoke.append((arch, scfg.family, r))
+        log(f"  {arch} ({scfg.family}) smoke: {TRAIN_SMOKE_STEPS} train steps on {device} vs "
+            f"the CPU: loss {r['loss']:.3e}, grad_norm {r['grad_norm']:.3e}, grads "
+            f"{r['grads']:.3e}, m {r['m']:.3e}, v {r['v']:.3e}, change of the params "
+            f"{r['moved']:.3e}")
+    return dict(steps=steps, step_s=step_s, tokens_per_s=tokens / step_s, peak=peak,
+                rate=rate, n_params=n_params, profile=prof, cut=cmp, remat=remat,
+                recovery=rec_err, checkpoint=ck, smoke=smoke,
+                seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
 # Entry point
 # ---------------------------------------------------------------------------
 
@@ -1837,6 +2168,7 @@ def main(argv=None) -> int:
         audit_phase(res, fams, multi, refined, device, "the CPU (rehearsal)")
         dataplane_phase(res, fams, refined, device, "the CPU (rehearsal)")
         lm_phase(device, "the CPU (rehearsal)", rehearse=True)
+        train_phase(device, "the CPU (rehearsal)", rehearse=True)
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -1940,6 +2272,20 @@ def main(argv=None) -> int:
         for name, key in (("fuzzy_lut", "err32"), ("fuzzy_lut_q8", "err8")):
             checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], rec[key])
     log(f"phase 9 took {lm['seconds']:.2f} s")
+
+    log(f"the LM training path: {LM_ARCH} at its published width:")
+    tr = train_phase(device, smi)
+    prof = tr["profile"]
+    if prof is None:
+        log("profiler window (one train step): device time not measured (the trace holds "
+            "no device events)")
+    else:
+        log(f"profiler window (one train step of {LM_ARCH}, {TRAIN_FULL['batch']} x "
+            f"{TRAIN_FULL['seq']} tokens, {smi}): window {prof['window_us']:.1f} us, device "
+            f"busy {prof['busy_us']:.1f} us, idle share {prof['idle_share']:.4f}")
+        for name, us in list(prof["by_name"].items())[:25]:
+            log(f"  device {us:10.1f} us  {name[:110]}")
+    log(f"phase 10 took {tr['seconds']:.2f} s")
 
     lines = []
     for name, source, replaces in KERNELS:

@@ -28,13 +28,14 @@ from repro_torch.nets.baselines.n3ic import N3IC
 from repro_torch.nets.cnn import CNNL, CNNModel, PegasusCNN, PegasusCNNL
 from repro_torch.nets.mlp import MLPB
 from repro_torch.nets.rnn import RNNB, PegasusRNN
+from repro_torch.train.checkpoint import stack_named
 
 __all__ = ["pegasus_linear_from_arrays", "banks_from_arrays", "mlp_from_arrays",
            "rnn_from_arrays", "cnn_from_arrays", "cnn_l_from_arrays",
            "ae_banks_from_arrays", "rnn_teacher_from_arrays", "cnn_teacher_from_arrays",
            "cnn_l_teacher_from_arrays", "ae_from_arrays", "n3ic_from_arrays",
            "bos_from_arrays", "leo_from_arrays", "lm_params_from_arrays",
-           "pegasus_ffn_from_arrays"]
+           "lm_arrays_from_params", "pegasus_ffn_from_arrays"]
 
 
 def _t(a, dtype, dev) -> torch.Tensor:
@@ -224,6 +225,29 @@ def lm_params_from_arrays(cfg: ArchConfig, params: dict,
         else:
             top[key] = _t_as_is(value, dev)
     return Params(**top)
+
+
+def lm_arrays_from_params(cfg: ArchConfig, params: Params | dict) -> dict:
+    """The inverse of :func:`lm_params_from_arrays`: the model's weights as
+    nested numpy dicts under the reference's keys, per-layer arrays stacked
+    ``[L, ...]``. ``params`` is the model or a flat dict under its parameter
+    names (gradients, Adam moments). bf16 comes back as f32 (exact)."""
+    named = dict(params.named_parameters()) if isinstance(params, nn.Module) else params
+    tree = stack_named(named)
+    depth = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers}
+
+    def arrays(node: dict, l: int | None) -> dict:
+        out = {}
+        for key, value in node.items():
+            if isinstance(value, dict):
+                out[key] = arrays(value, depth.get(key) if l is None else l)
+                continue
+            if l is not None and value.shape[0] != l:
+                raise ValueError(f"{key}: {value.shape[0]} layers, the config has {l}")
+            out[key] = (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+        return out
+
+    return arrays(tree, None)
 
 
 def pegasus_ffn_from_arrays(w_in: dict, w_gate: dict | None, w_out: dict, act: str,

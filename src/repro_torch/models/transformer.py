@@ -6,19 +6,24 @@ A model is a :class:`~repro_torch.models.layers.Params` tree under the
 reference's key names, its per-layer blocks in an ``nn.ModuleList``
 (``layers``, and ``enc_layers`` for enc-dec) where the reference stacks
 them over a leading ``[L, ...]`` axis for ``lax.scan``; Python loops over
-the layers replace the scans. Each dense FFN is an :class:`FFN` module, so
-a forward hook on it sees its input. Decode runs one token against
-preallocated caches/states, stacked over depth as in the reference and
-updated in place.
+the layers replace the scans, and ``torch.utils.checkpoint`` around each
+layer replaces ``jax.checkpoint`` on the scan body (``remat_policy``).
+Each dense FFN is an :class:`FFN` module, so a forward hook on it sees its
+input. Decode runs one token against preallocated caches/states, stacked
+over depth as in the reference and updated in place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.device import resolve_device
@@ -33,8 +38,8 @@ from .ssm import (
     slstm_decode_step, slstm_forward,
 )
 
-__all__ = ["FFN", "init_model", "forward_train", "init_decode_state", "decode_step",
-           "padded_vocab"]
+__all__ = ["FFN", "init_model", "forward_train", "lm_loss", "init_decode_state",
+           "decode_step", "padded_vocab"]
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -189,10 +194,35 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _run_layers(cfg, layers, x, positions, *, causal, enc_out=None):
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(_ctx, op, *_args, **_kwargs) -> CheckpointPolicy:
+    """``dots_with_no_batch_dims_saveable``: keep the products without a
+    batch dimension (the weight matmuls), recompute the rest (attention's
+    and the experts' batched products included)."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat_policy: str):
+    """``fn`` under the reference's remat policy: ``"nothing"`` saves only
+    the layer's inputs and recomputes the layer in the backward, ``"dots"``
+    also saves its weight products, anything else saves every activation.
+    Remat changes memory, never values; without autograd it is skipped."""
+    if not torch.is_grad_enabled() or remat_policy not in ("nothing", "dots"):
+        return fn
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _run_layers(cfg, layers, x, positions, *, causal, enc_out=None,
+                remat_policy: str = "nothing"):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
-        x, a = _layer_forward(cfg, p, x, positions, causal=causal, enc_out=enc_out)
+        body = _remat(functools.partial(_layer_forward, cfg, p, causal=causal), remat_policy)
+        x, a = body(x, positions, enc_out=enc_out)
         aux = aux + a
     return x, aux
 
@@ -206,11 +236,14 @@ def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
 
 
 def forward_train(cfg: ArchConfig, params: Params, batch: dict, *,
+                  remat_policy: str = "nothing",
                   last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V], moe_aux). ``batch`` carries ``tokens`` or
     (stub frontends) ``embeds``; enc-dec additionally ``dec_tokens``.
-    ``last_only`` keeps only the last position before the LM head (prefill
-    serving reads nothing else)."""
+    ``remat_policy`` (``"nothing"``, ``"dots"`` or any other value for no
+    remat) applies per layer when autograd records. ``last_only`` keeps only
+    the last position before the LM head (prefill serving reads nothing
+    else)."""
     dtype = params.embed.dtype
     if cfg.encoder_layers:
         # whisper: encoder over frame embeddings, decoder over text tokens
@@ -218,25 +251,41 @@ def forward_train(cfg: ArchConfig, params: Params, batch: dict, *,
         s_enc = enc_x.shape[1]
         pos_enc = torch.arange(s_enc, device=enc_x.device)
         enc_x = enc_x + _sinusoid(pos_enc, cfg.d_model).to(dtype)
-        enc_x, _ = _run_layers(cfg, params.enc_layers, enc_x, pos_enc, causal=False)
+        enc_x, _ = _run_layers(cfg, params.enc_layers, enc_x, pos_enc, causal=False,
+                               remat_policy=remat_policy)
         enc_out = rms_norm(enc_x, params.enc_ln_f)
 
         dec_tokens = batch["dec_tokens"]
         pos = torch.arange(dec_tokens.shape[1], device=dec_tokens.device)
         x = _embed(params, dec_tokens) + _sinusoid(pos, cfg.d_model).to(dtype)
-        x, aux = _run_layers(cfg, params.layers, x, pos, causal=True, enc_out=enc_out)
+        x, aux = _run_layers(cfg, params.layers, x, pos, causal=True, enc_out=enc_out,
+                             remat_policy=remat_policy)
     else:
         if "embeds" in batch:           # vlm stub frontend
             x = batch["embeds"].to(dtype)
         else:
             x = _embed(params, batch["tokens"])
         pos = torch.arange(x.shape[1], device=x.device)
-        x, aux = _run_layers(cfg, params.layers, x, pos, causal=True)
+        x, aux = _run_layers(cfg, params.layers, x, pos, causal=True,
+                             remat_policy=remat_policy)
 
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params.ln_f)
     return x @ _head(cfg, params), aux
+
+
+def lm_loss(cfg: ArchConfig, params: Params, batch: dict, *,
+            remat_policy: str = "nothing", z_loss: float = 1e-4,
+            aux_weight: float = 1e-2) -> torch.Tensor:
+    """Next-token cross-entropy over the padded vocab, plus ``z_loss`` times
+    the mean squared log-partition and ``aux_weight`` times the MoE
+    auxiliary loss; ``batch["labels"]`` holds the targets."""
+    logits, aux = forward_train(cfg, params, batch, remat_policy=remat_policy)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    logp = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0] - logz
+    return -logp.mean() + z_loss * torch.square(logz).mean() + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -227,7 +227,7 @@ def test_port_imports_no_jax():
         "          'core.primitives', 'core.syntax', 'core.fusion',\n"
         "          'nets.baselines.n3ic', 'nets.baselines.bos', 'nets.baselines.leo',\n"
         "          'models.transformer', 'models.pegasus_layer', 'configs.registry',\n"
-        "          'configs.qwen2_vl_2b'):\n"
+        "          'configs.qwen2_vl_2b', 'launch.train', 'train.checkpoint'):\n"
         "    assert 'repro_torch.' + n in sys.modules, n\n"
         "serve = sys.modules['repro_torch.launch.serve']\n"
         "assert serve.MultiModelServer and serve.AsyncMultiModelServer and serve.Server\n"
