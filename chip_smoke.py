@@ -97,7 +97,23 @@ Phases (any failure exits nonzero; none is caught and passed over):
      ``restore`` of the 2-layer state (bit-equal; bytes and seconds); the
      nine other architectures at ``smoke_config``, 2 train steps on the
      card against the CPU;
- 11. a ``{"kernels": [...]}`` line, then the device line as the last line.
+ 11. the mesh: (a) the six served models of phases 4-5 with their plans
+     built over 4 row shards on the card (``build_plan(devices=("cuda:0",)
+     * 4)``): outputs on kernel and kernel_q8 bit-equal to the
+     single-device plan's at the 37 requests and at a ragged batch, the
+     launches exactly four shards' worth, flows/s of both in turns; (b)
+     ``Server`` on a (1, 1) mesh (a one-rank NCCL group: NCCL takes one rank
+     per GPU, so the card measures DTensor's host cost, not scaling) for
+     Qwen2-VL-2B at its published width, tokens identical to the unsharded
+     ``Server``'s, tokens/s of both in turns and the idle share over 8
+     meshed decode steps; (c) ``TrainLoop`` on that mesh against the
+     unsharded loop, 3 steps of 8 x 1024 tokens: losses within 1e-6
+     relative, s/step and peak memory of both; (d) the dry-run of
+     Qwen2-VL-2B's train_4k, prefill_32k and decode_32k on the 256-rank
+     production mesh over a fake process group: trace seconds, FLOPs per
+     device beside ``analytic_cell``'s, collective bytes by kind and axis,
+     peak bytes per device, the roofline terms on the H100 constants;
+ 12. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
@@ -2136,6 +2152,257 @@ def train_phase(device, smi: str, *, rehearse: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the mesh
+# ---------------------------------------------------------------------------
+
+# (a) every served model's plan split into 4 row shards; a ragged batch
+MESH_SHARDS, MESH_RAGGED = 4, 1037
+# (b) Server and (c) TrainLoop on a (1, 1) mesh: phases 9-10's shapes
+MESH_FULL = dict(batch=8, kv_len=64, max_new=32, profile_steps=8, train_batch=8,
+                 train_seq=1024, train_steps=3)
+MESH_REHEARSE = dict(batch=2, kv_len=16, max_new=4, profile_steps=2, train_batch=2,
+                     train_seq=64, train_steps=3)
+MESH_LOSS_RTOL = 1e-6
+# (d) the supported cells of LM_ARCH on the 256-rank production mesh
+MESH_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def sharded_plans(res, fams, device, smi: str) -> dict:
+    """(a) The six served models of phases 4-5, each plan built with
+    ``devices=(device,) * 4``: served on kernel and kernel_q8 in turns with
+    the single-device plan (single, sharded, sharded, single), outputs
+    bit-equal, and at a ragged batch; the sharded runs' launches exactly
+    four shards times the family's launches per batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import bucket_chunks
+    from repro_torch.kernels.fuzzy_lut import _lib
+    from repro_torch.launch.serve import PegasusServer
+
+    devs = (device,) * MESH_SHARDS
+    launches, rates = dict.fromkeys(_lib.LAUNCHES, 0), {}
+    for name in MODELS:
+        src = res if name == "mlp" else fams[name]
+        reqs = src["request_list"]
+        inputs = (src["x"],) if name == "mlp" else src["inputs"]
+        ragged = tuple(a[:MESH_RAGGED] for a in inputs)
+        flows = sum(r.flows for r in reqs)
+        for backend in ("kernel", "kernel_q8"):
+            single = PegasusServer(src["model"], backend=backend, device=device)
+            sharded = PegasusServer(src["model"], backend=backend, devices=devs)
+            if sharded.plan.compile_stats()["devices"] != MESH_SHARDS:
+                raise AssertionError(f"{name}: the plan is not sharded over {MESH_SHARDS}")
+            want = np.concatenate([r.output for r in single.serve(reqs)])
+            sharded.serve(reqs)                          # first use of every bucket
+            runs, outs = [], []
+            for which in ("single", "sharded", "sharded", "single"):
+                server = single if which == "single" else sharded
+                _sync(device)
+                _lib.reset_launches()
+                results, dt = _timed_serve(server, reqs, device)
+                got = dict(_lib.LAUNCHES)
+                outs.append(np.concatenate([r.output for r in results]))
+                runs.append((which, dt, got))
+            if not all(np.array_equal(o, want) for o in outs):
+                err = max(float(np.abs(o - want).max()) for o in outs)
+                raise AssertionError(f"{name} {backend}: sharded outputs differ from the "
+                                     f"single-device plan's (max |diff| {err})")
+            _lib.reset_launches()
+            a = sharded.plan(*ragged, backend=backend)
+            got_ragged = dict(_lib.LAUNCHES)
+            b = single.plan(*ragged, backend=backend)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} {backend}: sharded ragged batch of "
+                                     f"{MESH_RAGGED} differs from the single-device plan")
+            batches = len(bucket_chunks(flows, sharded.plan.buckets, sharded.max_batch))
+            for which, _, got in runs:
+                if which == "sharded":
+                    for k, n in got.items():
+                        launches[k] += n
+            for k, n in got_ragged.items():
+                launches[k] += n
+            if device.type == "cuda":
+                per = {(k if backend == "kernel" else Q8_NAME[k]): n
+                       for k, n in PER_BATCH[name].items()}
+                expect = {k: n * batches * MESH_SHARDS for k, n in per.items()}
+                for which, _, got in runs:
+                    if which == "sharded" and {k: n for k, n in got.items() if n} != expect:
+                        raise AssertionError(f"{name} {backend} sharded: launches {got}; "
+                                             f"expected {expect}")
+            t_single = sum(dt for w, dt, _ in runs if w == "single")
+            t_sharded = sum(dt for w, dt, _ in runs if w == "sharded")
+            rates[(name, backend)] = dict(single=2 * flows / t_single,
+                                          sharded=2 * flows / t_sharded)
+            log(f"  {name:6s} {backend:9s} {MESH_SHARDS} shards on {device}: bit-equal at "
+                f"{len(reqs)} requests and a ragged batch of {MESH_RAGGED}; flows/s single "
+                f"{rates[(name, backend)]['single']:.1f}, sharded "
+                f"{rates[(name, backend)]['sharded']:.1f} (in turns) on {smi}")
+    return dict(rates=rates, launches=launches)
+
+
+def _one_rank_mesh(device):
+    """A (1, 1) ("data", "model") mesh over a one-rank process group: NCCL
+    on the card (one rank per GPU), gloo on the CPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    return init_device_mesh(device.type, (1, 1), mesh_dim_names=("data", "model"))
+
+
+def mesh_server(cfg, mesh, device, smi: str, sizes: dict) -> dict:
+    """(b) ``Server`` on the (1, 1) mesh against the unsharded ``Server``:
+    identical tokens; tokens/s of both in turns; the idle share over the
+    meshed server's decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import Server
+
+    kw = dict(kv_len=sizes["kv_len"], batch_size=sizes["batch"], dtype=torch.float32)
+    plain = Server(cfg, device=device, **kw)
+    meshed = Server(cfg, mesh=mesh, **kw)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(sizes["batch"], 1)).astype(np.int32)
+    plain.generate(prompts, max_new=2)                   # first use
+    meshed.generate(prompts, max_new=2)
+    outs, times = {}, {"plain": [], "mesh": []}
+    for which in ("plain", "mesh", "mesh", "plain"):
+        server = plain if which == "plain" else meshed
+        _sync(device)
+        t0 = time.perf_counter()
+        outs.setdefault(which, []).append(server.generate(prompts, max_new=sizes["max_new"]))
+        _sync(device)
+        times[which].append(time.perf_counter() - t0)
+    ref = outs["plain"][0]
+    if not all(np.array_equal(o, ref) for v in outs.values() for o in v):
+        raise AssertionError("Server on the (1, 1) mesh: tokens differ from the unsharded "
+                             "Server's")
+    tokens = sizes["batch"] * sizes["max_new"]
+    rate = {k: 2 * tokens / sum(v) for k, v in times.items()}
+    prof = profile_fn(lambda: meshed.generate(prompts, max_new=sizes["profile_steps"])) \
+        if device.type == "cuda" else None
+    del plain, meshed
+    return dict(tokens_per_s=rate, profile=prof, tokens=ref)
+
+
+def mesh_trainloop(cfg, mesh, device, smi: str, sizes: dict) -> dict:
+    """(c) ``TrainLoop`` on the (1, 1) mesh against the unsharded loop, one
+    after the other (two full-width train states do not fit at once): the
+    losses per step within ``MESH_LOSS_RTOL``; seconds per step and peak
+    memory of both."""
+    import torch
+
+    from repro_torch.launch.train import TrainLoop, synthetic_batches
+
+    cuda = device.type == "cuda"
+    out = {}
+    for which in ("plain", "mesh"):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(cfg, mesh=mesh if which == "mesh" else None, device=device,
+                         ckpt_dir=None, dtype=torch.float32, seed=0)
+        batches = synthetic_batches(cfg, sizes["train_batch"], sizes["train_seq"], seed=0)
+        losses = [float(loop.run(batches, 1)["loss"]) for _ in range(sizes["train_steps"])]
+        out[which] = dict(losses=losses, step_s=loop.step_times,
+                          peak=torch.cuda.max_memory_allocated() if cuda else None,
+                          placed=all(hasattr(p, "placements") for p in loop.params.parameters()))
+        del loop
+    if not out["mesh"]["placed"]:
+        raise AssertionError("TrainLoop on the mesh: its params are not DTensors")
+    errs = [abs(a - b) / abs(b) for a, b in zip(out["mesh"]["losses"], out["plain"]["losses"])]
+    if not max(errs) <= MESH_LOSS_RTOL:
+        raise AssertionError(f"TrainLoop on the (1, 1) mesh: losses {out['mesh']['losses']} "
+                             f"vs {out['plain']['losses']} (relative {max(errs):.3e}, limit "
+                             f"{MESH_LOSS_RTOL})")
+    out["loss_rel"] = max(errs)
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dryrun(arch: str, *, smoke: bool) -> list:
+    """(d) The supported cells of ``arch`` on the 256-rank production mesh
+    over a fake process group (no card, no allocation)."""
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    rows = []
+    for cell in MESH_CELLS:
+        r = dryrun_cell(arch, cell, smoke=smoke)
+        if "skipped" in r or not r["flops"] > 0:
+            raise AssertionError(f"dry-run {arch} {cell}: {r}")
+        if r["kind"] == "train" and not r["collective_total"] > 0:
+            raise AssertionError(f"dry-run {arch} {cell}: a train step moved no collective")
+        rows.append(r)
+    return rows
+
+
+def mesh_phase(res, fams, device, smi: str, *, rehearse: bool = False) -> dict:
+    """Phase 11: the sharded plan; ``Server`` and ``TrainLoop`` on a (1, 1)
+    mesh; the dry-run of LM_ARCH's supported cells."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config, smoke_config
+
+    sizes = MESH_REHEARSE if rehearse else MESH_FULL
+    cfg = smoke_config(LM_ARCH) if rehearse else get_config(LM_ARCH)
+    t_phase = time.perf_counter()
+    log("  (a) every served model's plan sharded over 4 row shards:")
+    t0 = time.perf_counter()
+    plans = sharded_plans(res, fams, device, smi)
+    plans["seconds"] = time.perf_counter() - t0
+    mesh = _one_rank_mesh(device)
+    try:
+        t0 = time.perf_counter()
+        srv = mesh_server(cfg, mesh, device, smi, sizes)
+        srv["seconds"] = time.perf_counter() - t0
+        r = srv["tokens_per_s"]
+        log(f"  (b) Server on a (1, 1) mesh, {cfg.name}, f32, {sizes['batch']} prompts x "
+            f"{sizes['max_new']} tokens: tokens identical to the unsharded Server's; "
+            f"tokens/s unsharded {r['plain']:.1f}, meshed {r['mesh']:.1f} (in turns, host "
+            f"clock ending in a sync; mesh/plain {r['mesh'] / r['plain']:.4f}) on {smi}")
+        prof = srv["profile"]
+        if prof is not None:
+            log(f"      profiler window ({sizes['profile_steps']} meshed decode steps, {smi}): "
+                f"window {prof['window_us']:.1f} us, device busy {prof['busy_us']:.1f} us, "
+                f"idle share {prof['idle_share']:.4f}")
+        elif device.type == "cuda":
+            log("      profiler window: device time not measured (no device events)")
+        t0 = time.perf_counter()
+        tr = mesh_trainloop(cfg, mesh, device, smi, sizes)
+        tr["seconds"] = time.perf_counter() - t0
+        for which in ("plain", "mesh"):
+            w = tr[which]
+            steps = ", ".join(f"{x:.4f}" for x in w["step_s"])
+            peak = "not measured" if w["peak"] is None else \
+                f"{w['peak']} B ({w['peak'] / 2**30:.2f} GiB)"
+            log(f"  (c) TrainLoop {which:5s} {sizes['train_batch']} x {sizes['train_seq']} "
+                f"tokens: losses {[round(x, 7) for x in w['losses']]}, s/step [{steps}], "
+                f"peak memory {peak} on {smi}")
+        log(f"      losses within {tr['loss_rel']:.3e} relative (limit {MESH_LOSS_RTOL})")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    rows = mesh_dryrun(LM_ARCH, smoke=rehearse)
+    for r in rows:
+        t = r["roofline"]
+        log(f"  (d) dry-run {r['arch']} {r['shape']} on {r['mesh']} ({r['ranks']} fake ranks): "
+            f"trace {r['trace_s']} s; FLOPs/device {r['flops']:.4e} (analytic "
+            f"{r['analytic_flops']:.4e}); collective B/device {r['collective_total']} "
+            f"{ {k: v for k, v in r['collective_bytes'].items() if v} } by axis "
+            f"{r['collective_by_axis']}; peak bytes/device {r['memory']['peak_bytes']}; "
+            f"roofline on the H100 SXM5 datasheet (700 W): compute {t['compute_s'] * 1e3:.3f} "
+            f"ms, memory {t['memory_s'] * 1e3:.3f} ms, collective {t['collective_s'] * 1e3:.3f} "
+            f"ms, {t['dominant']}-bound")
+    dry_s = time.perf_counter() - t0
+    return dict(plans=plans, server=srv, train=tr, dryrun=rows, dryrun_s=dry_s,
+                launches=plans["launches"], seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
 # Entry point
 # ---------------------------------------------------------------------------
 
@@ -2153,6 +2420,7 @@ def main(argv=None) -> int:
                     help="CPU rehearsal at tiny size with the plain versions; "
                          "prints no result line")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     _setup_path()
     import torch
 
@@ -2169,6 +2437,7 @@ def main(argv=None) -> int:
         dataplane_phase(res, fams, refined, device, "the CPU (rehearsal)")
         lm_phase(device, "the CPU (rehearsal)", rehearse=True)
         train_phase(device, "the CPU (rehearsal)", rehearse=True)
+        mesh_phase(res, fams, device, "the CPU (rehearsal)", rehearse=True)
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -2287,17 +2556,25 @@ def main(argv=None) -> int:
             log(f"  device {us:10.1f} us  {name[:110]}")
     log(f"phase 10 took {tr['seconds']:.2f} s")
 
+    log("the mesh:")
+    mesh = mesh_phase(res, fams, device, smi)
+    log(f"phase 11 took {mesh['seconds']:.2f} s ((a) {mesh['plans']['seconds']:.2f} s, (b) "
+        f"{mesh['server']['seconds']:.2f} s, (c) {mesh['train']['seconds']:.2f} s, (d) "
+        f"{mesh['dryrun_s']:.2f} s)")
+
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     lines = []
     for name, source, replaces in KERNELS:
         rec = checks[name]
         launches = (res["launches"][name] + sum(f["launches"][name] for f in fams.values())
                     + multi["launches"][name] + refined["launches"][name]
-                    + lm["launches"][name])
+                    + lm["launches"][name] + mesh["launches"][name])
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=None, lm_launches=lm["launches"][name]))
+            bound_by=rec["bound_by"], library_ms=None, lm_launches=lm["launches"][name],
+            mesh_launches=mesh["launches"][name]))
     log(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -591,7 +591,7 @@ def audit_plan(plan, config: AuditConfig | None = None) -> AuditReport:
         "num_banks": len(plan.banks),
         "fused_groups": len(plan.fused_stacks),
         "buckets": list(plan.buckets),
-        "devices": 1,
+        "devices": 1 if plan.devices is None else len(plan.devices),
         "device": str(plan.device),
         "table_bytes": plan.table_bytes(),
         "seconds": time.perf_counter() - t0,      # host time of this audit

@@ -16,7 +16,8 @@
     reference's one XLA program per ``(backend, bucket)``; ``traces``
     counts the captures. On the CPU, and with ``jit=False``, the forward
     runs eagerly. ``device=`` places one call on another device, with a
-    replica of the bank state built once per device.
+    replica of the bank state built once per device; ``build_plan(devices=)``
+    shards every call's padded bucket over several devices.
   * :func:`build_plan` — compiles every family the nets produce: a bank
     list (MLP-B, the AutoEncoder), the RNN's unrolled window, CNN-B/CNN-M
     (window bank, then the pooled head chain or the NAM sum) and CNN-L
@@ -432,6 +433,16 @@ class ExecutionPlan:
     replica of the bank state built once per device (outside the replica
     lock); inputs that arrive as host arrays are copied onto it on the
     caller's current stream. This is what ``DeviceStreamPool`` workers use.
+
+    **Sharded plans** (``build_plan(devices=)``, K > 1 devices, the
+    reference's ``shard_map`` over a 1-D ``("batch",)`` mesh): a call pads
+    the batch to its bucket on ``devices[0]``, splits it into K equal row
+    shards, runs shard i on ``devices[i]`` (its graph at ``bucket / K``
+    rows on a card, eagerly on the CPU; the bank state replicated once per
+    device) and concatenates the outputs in row order on ``devices[0]``.
+    Rows never interact, so no collective runs and the output is the
+    single-device plan's, bit for bit. A device may repeat. A first use of
+    a ``(backend, bucket)`` counts one trace, whatever the shards capture.
     """
 
     def __init__(self, banks: Sequence[CompiledBank],
@@ -475,7 +486,27 @@ class ExecutionPlan:
         self._pools: dict[tuple, _GraphPool] = {}
         self._replica_lock = make_lock("plan._replica_lock")
         self._replicas: dict[torch.device, Any] = {}        # guarded-by: _replica_lock
+        self.devices: tuple | None = None     # set by shard_over (build_plan(devices=))
         STATS.plan_builds += 1
+
+    def shard_over(self, devices: tuple | None) -> None:
+        """Shard every call over ``devices`` (a tuple from
+        :func:`resolve_devices` whose first entry is the plan's device, or
+        None); each bucket must split evenly."""
+        if devices is not None and devices[0] != self.device:
+            raise ValueError(f"devices[0]={devices[0]} is not the plan's device {self.device}")
+        if devices is not None and len(devices) > 1:
+            bad = [b for b in self.buckets if b % len(devices)]
+            if bad:
+                raise ValueError(
+                    f"bucket sizes {bad} are not divisible by the {len(devices)}-device "
+                    "mesh: every bucket is split evenly across the batch axis (pass "
+                    "bucket_sizes that the device count divides)")
+        self.devices = devices
+
+    @property
+    def _sharded(self) -> bool:
+        return self.devices is not None and len(self.devices) > 1
 
     def step_rows_per_flow(self, step) -> int:
         """Rows one flow of a batch gives ``step`` (a bank or a fused stack)."""
@@ -506,6 +537,12 @@ class ExecutionPlan:
         be = self.backend if backend is None else backend
         if be not in BACKENDS:
             raise ValueError(f"unknown backend {be!r}; expected one of {BACKENDS}")
+        if self._sharded:
+            if device is not None:
+                raise ValueError(
+                    "this plan is sharded across a device mesh at build time (devices=); "
+                    "per-call device placement applies only to single-device plans")
+            return self._sharded_call(be, inputs, jit)
         dev = self.device if device is None else resolve_device(device)
         state = self._state_for(dev)
         if not jit:
@@ -521,6 +558,30 @@ class ExecutionPlan:
         self._note_call(be, bucket, b, first_use=(be, bucket, dev))
         with torch.no_grad():
             y = self._forward(lambda step, x: step.apply(x, be), state, *padded)
+        return y if bucket == b else y[:b]
+
+    def _sharded_call(self, be: str, inputs, jit: bool) -> torch.Tensor:
+        """One call split into equal row shards, one per device (see the
+        class docstring)."""
+        b = int(np.shape(inputs[0])[0])
+        bucket = bucket_batch(b, self.buckets)
+        rows = bucket // len(self.devices)
+        home = self.devices[0]
+        padded = tuple(self._padded(x, bucket, home) for x in inputs)
+        if jit:
+            STATS.jit_calls += 1
+            self._note_call(be, bucket, b, first_use=(be, bucket, self.devices))
+        apply = lambda step, x: step.apply(x, be)
+        outs = []
+        for i, dev in enumerate(self.devices):
+            shard = tuple(x[i * rows:(i + 1) * rows] for x in padded)
+            state = self._state_for(dev)
+            if jit and dev.type == "cuda":
+                outs.append(self._replay(be, rows, rows, dev, state, shard, count=False))
+            else:
+                with torch.no_grad():
+                    outs.append(self._forward(apply, state, *(x.to(dev) for x in shard)))
+        y = torch.cat([o.to(home) for o in outs])
         return y if bucket == b else y[:b]
 
     def _note_call(self, be: str, bucket: int, b: int, first_use=None) -> None:
@@ -557,16 +618,21 @@ class ExecutionPlan:
         return st
 
     def _graph_call(self, be, bucket, b, dev, state, inputs) -> torch.Tensor:
+        self._note_call(be, bucket, b)
+        return self._replay(be, bucket, b, dev, state, inputs)
+
+    def _replay(self, be, bucket, b, dev, state, inputs, count: bool = True) -> torch.Tensor:
+        """Replay the graph at ``(be, bucket)`` on ``dev`` and the current
+        stream, capturing it first (a trace when ``count``)."""
         srcs = tuple(x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
                      for x in inputs)
         stream = torch.cuda.current_stream(dev)
         key = (be, bucket, dev, stream.cuda_stream,
                tuple((tuple(x.shape[1:]), x.dtype) for x in srcs))
-        self._note_call(be, bucket, b)
         with self._lock:
             g = self._graphs.get(key)
         if g is None:
-            y = self._capture(key, be, bucket, b, dev, state, srcs, stream)
+            y = self._capture(key, be, bucket, b, dev, state, srcs, stream, count)
             if y is not None:
                 return y
             with self._lock:         # a racing call captured it first
@@ -581,7 +647,7 @@ class ExecutionPlan:
         _lib.add_launches(g.launches)
         return y
 
-    def _capture(self, key, be, bucket, b, dev, state, srcs, stream):
+    def _capture(self, key, be, bucket, b, dev, state, srcs, stream, count: bool = True):
         """First call at ``key``: fill new static inputs, run the forward
         once eagerly on the capture stream (its output answers this call),
         then capture it into a graph. Returns None when a racing call
@@ -612,7 +678,8 @@ class ExecutionPlan:
                     out = self._forward(apply, state, *static)
             with self._lock:
                 self._graphs[key] = _Graph(graph, static, out, dict(tally), pool)
-                self._note_trace(be, bucket)
+                if count:
+                    self._note_trace(be, bucket)
         stream.wait_stream(side)
         warm.record_stream(stream)
         return warm if b == bucket else warm[:b]
@@ -675,9 +742,9 @@ class ExecutionPlan:
             },
             "fused_groups": self.fused_groups,
             "fused_banks": self.fused_banks,
-            # the sharded width: 1 until the sharded mode is ported
-            # (placed calls don't change it)
-            "devices": 1,
+            # the sharded width: how many devices the batch axis splits
+            # across (1 = single-device; placed calls don't change it)
+            "devices": 1 if self.devices is None else len(self.devices),
             # plan-audit finding counts (repro_torch.analysis.planaudit),
             # None when the plan was built with audit="off" and never audited
             "audit": None if self.audit_report is None
@@ -852,7 +919,8 @@ def build_plan(
     bucket_sizes: Sequence[int] | None = None,
     fuse: bool = True,
     fuse_nmax_cap: int | None = DEFAULT_FUSE_NMAX_CAP,
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
+    devices=None,
     audit: str = "warn",
 ) -> ExecutionPlan:
     """Compile any pegasusified model into an ExecutionPlan on ``device``.
@@ -871,9 +939,16 @@ def build_plan(
     and non-bank attributes alike (RNN window, CNN nam/out_bias, CNN-L
     emb_tree/logit_lut/bias): rebuild it after mutating the model, or go
     through ``plan_for``, which notices and recompiles. The plan runs on
-    the GPU unless ``device="cpu"``. The reference's build-time sharded
-    mode (``devices=``) is not ported; serve across devices with
-    ``MultiModelServer(devices=...)``, which places whole calls instead.
+    the GPU unless ``device="cpu"``.
+
+    ``devices`` (what :func:`resolve_devices` takes: a count of CUDA
+    devices or a sequence of devices, which may repeat) shards every call:
+    with K > 1 devices each padded bucket splits into K equal row shards,
+    each run on its device against its own replica of the plan's tensors,
+    the outputs concatenated in row order on ``devices[0]`` (the plan's
+    device; ``device``, if given, must name it). A bucket K does not
+    divide raises ``ValueError``, and so does a per-call ``device=``.
+    ``MultiModelServer(devices=...)`` places whole calls instead.
 
     ``audit`` runs the static plan audit
     (:mod:`repro_torch.analysis.planaudit`, PGA101-PGA106) over the new
@@ -887,7 +962,8 @@ def build_plan(
     """
     if audit not in ("off", "warn", "error"):
         raise ValueError(f"audit must be 'off'|'warn'|'error', got {audit!r}")
-    dev = resolve_device(device)
+    devs = resolve_devices(devices)
+    dev = devs[0] if devs is not None and device is None else resolve_device(device)
     # the onehot backend is an fp32 matmul: TF32 would cost it fp32 parity
     torch.backends.cuda.matmul.allow_tf32 = False
     if torch.backends.cuda.matmul.allow_tf32:
@@ -906,6 +982,7 @@ def build_plan(
         plan = _cnn_plan(model, backend, bucket_sizes, fuse, fuse_nmax_cap, dev)
     else:
         raise TypeError(f"don't know how to compile {type(model).__name__} into a plan")
+    plan.shard_over(devs)
     plan._aux_token = _model_aux(model)
     plan.fuse_cfg = {"fuse": fuse, "nmax_cap": fuse_nmax_cap}
     _run_build_audit(plan, audit)

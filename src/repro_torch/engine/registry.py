@@ -15,8 +15,9 @@ memoized :func:`~repro_torch.engine.plan.build_plan`:
   * A hit requires the same model identity, the same bank layers in plan
     order and an unchanged non-bank aux token (window, NAM flag, bias,
     logit LUT — ``plan._model_aux``); anything else rebuilds.
-  * The key holds the build options: the device, ``fuse``,
-    ``fuse_nmax_cap``, the bucket ladder and the plan's default backend.
+  * The key holds the build options: the device, the sharded ``devices``
+    tuple, ``fuse``, ``fuse_nmax_cap``, the bucket ladder and the plan's
+    default backend.
 
 **Named entries** (:meth:`register` / :meth:`get`) are the serving
 surface: ``register("rnn-ids", model)`` pins the model and its plan under
@@ -56,6 +57,7 @@ from .plan import (
     _model_banks,
     _model_key,
     build_plan,
+    resolve_devices,
 )
 
 __all__ = ["PlanRegistry", "plan_for", "reset_plan_cache", "default_registry"]
@@ -132,7 +134,12 @@ class PlanRegistry:
         kw["fuse"] = bool(kw.get("fuse", True))
         cap = kw.get("fuse_nmax_cap", DEFAULT_FUSE_NMAX_CAP)
         kw["fuse_nmax_cap"] = None if cap is None else int(cap)
-        kw["device"] = resolve_device(kw.get("device", "cuda"))
+        # devices keys as its resolved tuple, so devices=2 and the equal
+        # device tuple share one plan, and an absent knob keys as None
+        kw["devices"] = resolve_devices(kw.get("devices"))
+        dev = kw.get("device")
+        kw["device"] = (kw["devices"][0] if kw["devices"] is not None and dev is None
+                        else resolve_device(dev))
         key = _model_key(model, kw)
         while True:
             with self._lock:

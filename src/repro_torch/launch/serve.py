@@ -1,5 +1,4 @@
-"""Serving entry points of the port (port of ``repro.launch.serve``, less
-its sharded mesh serving).
+"""Serving entry points of the port (port of ``repro.launch.serve``).
 
 ``PegasusServer`` compiles ONE model's plan once (int32 features, LUTs, int8
 LUT + scales on the GPU) and serves request lists: requests are coalesced,
@@ -22,12 +21,16 @@ a CUDA graph (see :class:`~repro_torch.engine.plan.ExecutionPlan`).
 
 ``Server`` is the LM half: batched greedy decode of one model from the LM
 stack (:mod:`repro_torch.models`) against preallocated caches, with
-``make_serve_step`` / ``make_prefill_step`` as its units.
+``make_serve_step`` / ``make_prefill_step`` as its units; on a mesh its
+params and caches are DTensors (``Server(cfg, mesh=...)``).
 
-Run the demos on the GPU::
+Run the demos on the GPU (under ``torchrun``, ``--arch`` serves on a
+``(1, world)`` mesh)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --pegasus --backend kernel_q8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_vl_2b [--smoke]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch qwen2_vl_2b --smoke
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from repro_torch.configs.registry import ArchConfig, get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.engine import DEFAULT_BUCKETS, PlanRegistry, bucket_chunks, build_plan
 from repro_torch.engine.plan import resolve_devices
+from repro_torch.models.sharding import replicate
 from repro_torch.models.transformer import (
     decode_step, forward_train, init_decode_state, init_model,
 )
@@ -56,6 +60,10 @@ from repro_torch.models.transformer import (
 from .chaos import InjectedFaultError
 from .devices import DeviceStreamPool
 from .health import CLOSED, CircuitBreaker
+from .mesh import (
+    batch_specs, decode_state_specs, distribute, distribute_params, mesh_device, named,
+    param_specs, world_mesh,
+)
 from .request import InferRequest, InferResult
 from .scheduler import (
     PRIORITY_WEIGHTS, DeadlineExceededError, QueueFullError, WFQScheduler,
@@ -202,7 +210,9 @@ def make_serve_step(cfg: ArchConfig):
     @torch.no_grad()
     def serve_step(params, state, tokens, pos: int, enc_out=None):
         logits, state = decode_step(cfg, params, state, tokens, pos, enc_out=enc_out)
-        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], state
+        # argmax over a vocab-sharded dim has no DTensor rule: gather the
+        # [B, V] logits first (a no-op off a mesh)
+        return torch.argmax(replicate(logits), dim=-1).to(torch.int32)[:, None], state
 
     return serve_step
 
@@ -212,7 +222,8 @@ def make_prefill_step(cfg: ArchConfig, *, last_only: bool = True):
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = forward_train(cfg, params, batch, last_only=last_only)
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        # as in serve_step: the last position's [B, V] logits gathered
+        return torch.argmax(replicate(logits[:, -1]), dim=-1).to(torch.int32)
 
     return prefill_step
 
@@ -224,18 +235,30 @@ class Server:
     :func:`repro_torch.interop.lm_params_from_arrays` (moved to ``device``);
     without it the model is drawn from a generator seeded 0 on ``device``,
     as the reference initialises from ``PRNGKey(0)`` (other numbers).
+    With ``mesh`` (a ``DeviceMesh`` with "data" and "model" axes; every rank
+    calls the server alike) the params are placed by ``param_specs`` and the
+    caches by ``decode_state_specs``; the tokens are placed by
+    ``batch_specs`` at each step and :meth:`generate` returns them whole.
     """
 
-    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
+    def __init__(self, cfg: ArchConfig, *, mesh=None, device: str | torch.device = "cuda",
                  kv_len: int = 512, batch_size: int = 8, dtype=torch.float32,
                  params=None):
-        self.cfg = cfg
-        self.device = resolve_device(device)
+        self.cfg, self.mesh = cfg, mesh
+        self.device = mesh_device(mesh) if mesh is not None else resolve_device(device)
         self.params = (init_model(cfg, 0, dtype=dtype, device=self.device)
                        if params is None else params.to(self.device))
         self.state = init_decode_state(cfg, batch_size, kv_len, dtype=dtype,
                                        device=self.device)
         self.batch_size = batch_size
+        self._tok_sh = None
+        if mesh is not None:
+            distribute_params(self.params, named(mesh, param_specs(cfg, self.params, mesh)))
+            sh = named(mesh, decode_state_specs(cfg, self.state, mesh, batch_size=batch_size))
+            self.state = {k: distribute(v, sh[k]) for k, v in self.state.items()}
+            self._tok_sh = named(mesh, batch_specs(
+                cfg, {"tokens": torch.empty((batch_size, 1))}, mesh,
+                batch_size=batch_size))["tokens"]
         self._step = make_serve_step(cfg)
 
     def generate(self, prompt_tokens: np.ndarray, max_new: int = 16) -> np.ndarray:
@@ -244,9 +267,15 @@ class Server:
         toks = torch.as_tensor(np.asarray(prompt_tokens)[:, :1], dtype=torch.int32,
                                device=self.device)
         out = [toks]
+        if self.mesh is not None:
+            toks = distribute(toks, self._tok_sh)
         for t in range(max_new):
             toks, self.state = self._step(self.params, self.state, toks, t)
-            out.append(toks)
+            if self.mesh is not None:
+                out.append(toks.full_tensor())
+                toks = toks.redistribute(self.mesh, self._tok_sh.placements)
+            else:
+                out.append(toks)
         return torch.cat(out, dim=1).cpu().numpy()
 
 
@@ -254,14 +283,18 @@ class PegasusServer:
     """Batched multi-request server over ONE compiled ExecutionPlan.
 
     Every request input carries a leading batch dim (axis 0 = flows).
-    Serving counters change only after a call succeeds.
+    Serving counters change only after a call succeeds. ``devices`` builds
+    the plan sharded over those devices (``build_plan(devices=)``: every
+    batch split into equal row shards, one per device); ``device`` is then
+    ``devices[0]``.
     """
 
     def __init__(self, model, *, backend: str = "onehot",
                  max_batch: int | None = None, fuse: bool = True,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device | None = None, devices=None):
         t0 = time.perf_counter()
-        self.plan = build_plan(model, backend=backend, fuse=fuse, device=device)
+        self.plan = build_plan(model, backend=backend, fuse=fuse, device=device,
+                               devices=devices)
         self.plan_build_ms = (time.perf_counter() - t0) * 1e3
         self.backend = backend
         self.max_batch = max(self.plan.buckets) if max_batch is None else max_batch
@@ -289,7 +322,8 @@ class PegasusServer:
             },
             "scheduler": {},
             "slo": {},
-            "devices": {"count": 1, "per_device": []},
+            "devices": {"count": 1 if self.plan.devices is None else len(self.plan.devices),
+                        "per_device": []},
             "health": {"models": {}, "degraded_models": [],
                        "chaos": {"installed": False}},
         }
@@ -1210,7 +1244,8 @@ def _pegasus_demo(args) -> None:
 def _lm_demo(args) -> None:
     """--arch: greedy decode with :class:`Server` from single-token prompts."""
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    server = Server(cfg, device=args.device, batch_size=args.batch)
+    server = Server(cfg, mesh=world_mesh(args.device), device=args.device,
+                    batch_size=args.batch)
     prompts = np.ones((args.batch, 1), np.int32)
     t0 = time.perf_counter()
     out = server.generate(prompts, max_new=args.max_new)

@@ -4,12 +4,19 @@ loop with async checkpointing and crash recovery, and the synthetic token
 stream.
 
 The reference jit-compiles its step over a device mesh and donates params
-and optimizer state; here the step runs eagerly on one device and writes
-the new values into the same parameter tensors (the same arithmetic).
+and optimizer state; here the step runs eagerly and writes the new values
+into the same parameter tensors (the same arithmetic). On a mesh
+(``TrainLoop(cfg, mesh=...)``) the parameters and Adam's m and v are
+DTensors placed by :func:`repro_torch.launch.mesh.param_specs` (ZeRO-3),
+the batch by ``batch_specs``, and each gradient is reduce-scattered to its
+parameter's placements before the update.
 
-CLI (small model; add ``--device cpu`` off the card):
+CLI (small model; add ``--device cpu`` off the card; under ``torchrun``
+it trains on a ``(1, world)`` mesh, as the reference's ``(1, n_dev)``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_vl_2b --smoke \\
       --steps 20 --ckpt-dir /tmp/ckpt
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen2_vl_2b --smoke --steps 20
 """
 
 from __future__ import annotations
@@ -22,14 +29,19 @@ import torch
 
 from repro_torch.configs.registry import ArchConfig, get_config, smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (
+    batch_specs, distribute, distribute_params, mesh_device, named, param_specs, world_mesh,
+)
 from repro_torch.models.layers import Params
+from repro_torch.models.sharding import implicit, is_dtensor, mesh_dims
 from repro_torch.models.transformer import init_model, lm_loss
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import (
     AdamWState, adamw_init, adamw_update, cosine_schedule,
 )
 
-__all__ = ["loss_and_grads", "make_train_step", "TrainLoop", "synthetic_batches", "main"]
+__all__ = ["loss_and_grads", "make_train_step", "train_state_shardings", "TrainLoop",
+           "synthetic_batches", "main"]
 
 
 def loss_and_grads(cfg: ArchConfig, params: Params, batch: dict, *,
@@ -48,9 +60,9 @@ def loss_and_grads(cfg: ArchConfig, params: Params, batch: dict, *,
         raise ValueError("the parameters take no gradients: call params.requires_grad_(True)")
 
     def one(mb: dict) -> tuple[torch.Tensor, list]:
-        with torch.enable_grad():
+        with torch.enable_grad(), implicit(leaves[0]):
             loss = lm_loss(cfg, params, mb, remat_policy=remat_policy)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves, grads)]
 
@@ -61,17 +73,34 @@ def loss_and_grads(cfg: ArchConfig, params: Params, batch: dict, *,
         if len(rows) != 1 or next(iter(rows)) % microbatches:
             raise ValueError(f"batch rows {sorted(rows)} do not split into "
                              f"{microbatches} microbatches")
-        n = next(iter(rows)) // microbatches
-        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        loss, grads = 0.0, None
         for i in range(microbatches):
-            l, g = one({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+            l, g = one({k: _microbatch(v, i, microbatches) for k, v in batch.items()})
             loss = loss + l
-            for acc, gi in zip(grads, g):
-                acc.add_(gi)
+            g = [gi.to(torch.float32) for gi in g]
+            grads = g if grads is None else [acc + gi for acc, gi in zip(grads, g)]
         loss = loss / microbatches
         grads = [g / microbatches for g in grads]
     return loss, dict(zip(named, grads))
+
+
+def _microbatch(v: torch.Tensor, i: int, count: int) -> torch.Tensor:
+    """The ``i``-th of ``count`` equal row slices of a batch tensor. A
+    DTensor sharded over its rows gives the ``i``-th slice of each shard
+    (no rows move between ranks): other rows than the plain slice, with
+    the same mean over all microbatches."""
+    if is_dtensor(v) and mesh_dims(v, 0):
+        from torch.distributed.tensor import DTensor
+
+        local = v.to_local()
+        n = local.shape[0] // count
+        if n * count != local.shape[0]:
+            raise ValueError(f"batch shard of {local.shape[0]} rows does not split into "
+                             f"{count} microbatches")
+        return DTensor.from_local(local[i * n:(i + 1) * n], v.device_mesh, v.placements,
+                                  run_check=False)
+    n = v.shape[0] // count
+    return v[i * n:(i + 1) * n]
 
 
 def make_train_step(
@@ -100,17 +129,36 @@ def make_train_step(
         params.requires_grad_(True)
         loss, grads = loss_and_grads(cfg, params, batch, remat_policy=remat_policy,
                                      microbatches=microbatches)
+        named = dict(params.named_parameters())
+        # on a mesh a gradient comes back with pending sums (Partial over
+        # the batch axes): reduce-scatter it to its parameter's placements,
+        # where m and v live, before the norm and the update
+        grads = {k: g.redistribute(named[k].device_mesh, named[k].placements)
+                 if is_dtensor(g) else g for k, g in grads.items()}
         if grad_compression == "bf16":
             grads = {k: g.to(torch.bfloat16).to(torch.float32) for k, g in grads.items()}
-        named = dict(params.named_parameters())
-        new, opt, gnorm = adamw_update(named, grads, opt, lr=lr_fn(opt.step),
-                                       weight_decay=weight_decay)
-        with torch.no_grad():
-            for k, p in named.items():
-                p.copy_(new[k])
-        return params, opt, {"loss": loss, "grad_norm": gnorm, "step": opt.step}
+        with implicit(loss):
+            new, opt, gnorm = adamw_update(named, grads, opt, lr=lr_fn(opt.step),
+                                           weight_decay=weight_decay)
+            with torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(new[k])
+        return params, opt, {"loss": _whole(loss), "grad_norm": _whole(gnorm),
+                             "step": opt.step}
 
     return train_step
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's pending sums reduced)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def train_state_shardings(cfg: ArchConfig, params: Params, mesh):
+    """Param and optimizer shardings: m and v take the params' placements
+    (ZeRO-3); the step counter stays a plain tensor (``None``)."""
+    psh = named(mesh, param_specs(cfg, params, mesh))
+    return psh, AdamWState(step=None, m=psh, v=psh)
 
 
 def _sync(device: torch.device) -> None:
@@ -123,18 +171,27 @@ class TrainLoop:
     checkpointing, simple straggler mitigation via step-time watchdog.
 
     The model is drawn from a generator seeded ``seed`` on ``device``
-    (other numbers than the reference's ``PRNGKey(seed)``). A second
-    :meth:`run` continues the step count.
+    (other numbers than the reference's ``PRNGKey(seed)``). With ``mesh``
+    (a ``DeviceMesh`` with "data" and "model" axes; ``device`` is then the
+    mesh's) every rank calls the loop with the same batches: the params
+    and Adam's m and v are DTensors placed by :func:`train_state_shardings`,
+    each batch by ``batch_specs``, and a checkpoint restores onto this
+    mesh whatever mesh saved it. A second :meth:`run` continues the step
+    count.
     """
 
-    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
+    def __init__(self, cfg: ArchConfig, *, mesh=None, device: str | torch.device = "cuda",
                  ckpt_dir: str | None = None, ckpt_every: int = 50,
                  microbatches: int = 1, remat_policy: str = "nothing",
                  grad_compression: str = "none", dtype=torch.float32, seed: int = 0):
-        self.cfg = cfg
-        self.device = resolve_device(device)
+        self.cfg, self.mesh = cfg, mesh
+        self.device = mesh_device(mesh) if mesh is not None else resolve_device(device)
         self.ckpt_dir, self.ckpt_every = ckpt_dir, ckpt_every
         self.params = init_model(cfg, seed, dtype=dtype, device=self.device)
+        self.param_sh = self.opt_sh = None
+        if mesh is not None:
+            self.param_sh, self.opt_sh = train_state_shardings(cfg, self.params, mesh)
+            distribute_params(self.params, self.param_sh)
         self.params.requires_grad_(True)
         self.opt = adamw_init(dict(self.params.named_parameters()))
         self.start_step = 0
@@ -143,12 +200,20 @@ class TrainLoop:
         )
         if ckpt_dir and ckpt_lib.latest_step(ckpt_dir) is not None:
             (self.params, self.opt), self.start_step = ckpt_lib.restore(
-                ckpt_dir, (self.params, self.opt))
+                ckpt_dir, (self.params, self.opt),
+                shardings=None if mesh is None else (self.param_sh, self.opt_sh))
 
         self._step = make_train_step(cfg, microbatches=microbatches,
                                      remat_policy=remat_policy,
                                      grad_compression=grad_compression)
         self.step_times: list[float] = []
+
+    def _place(self, host: dict) -> dict:
+        if self.mesh is None:
+            return {k: torch.as_tensor(v, device=self.device) for k, v in host.items()}
+        rows = next(iter(host.values())).shape[0]
+        sh = named(self.mesh, batch_specs(self.cfg, host, self.mesh, batch_size=rows))
+        return {k: distribute(torch.as_tensor(v), sh[k]) for k, v in host.items()}
 
     def run(self, batches, steps: int):
         it = iter(batches)
@@ -156,7 +221,7 @@ class TrainLoop:
         for i in range(self.start_step, self.start_step + steps):
             host = next(it)
             t0 = time.perf_counter()
-            batch = {k: torch.as_tensor(v, device=self.device) for k, v in host.items()}
+            batch = self._place(host)
             self.params, self.opt, metrics = self._step(self.params, self.opt, batch)
             _sync(self.device)
             dt = time.perf_counter() - t0
@@ -214,7 +279,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    loop = TrainLoop(cfg, device=args.device, ckpt_dir=args.ckpt_dir,
+    mesh = world_mesh(args.device)
+    loop = TrainLoop(cfg, mesh=mesh, device=args.device, ckpt_dir=args.ckpt_dir,
                      microbatches=args.microbatches)
     metrics = {k: float(v) for k, v in loop.run(
         synthetic_batches(cfg, args.batch, args.seq), args.steps).items()}

@@ -15,6 +15,8 @@ import torch
 from torch.nn import functional as F
 
 from .layers import Params, dense_init, zeros
+from .shape_only import loop_on_meta
+from .sharding import tp_region
 
 __all__ = [
     "init_mlstm", "mlstm_forward", "mlstm_decode_step",
@@ -78,9 +80,19 @@ def _mlstm_chunk(q, k, v, logf, i_gate, carry_S, carry_n):
 
 def mlstm_forward(p: Params, x: torch.Tensor, *, num_heads: int, head_dim: int,
                   chunk: int = 256) -> torch.Tensor:
-    """Full-sequence chunked mLSTM. x: [B, S, D] → [B, S, D]."""
+    """Full-sequence chunked mLSTM. x: [B, S, D] → [B, S, D]. On a mesh it
+    runs tensor-parallel over the heads (see :func:`~.sharding.tp_region`)."""
+    ws = (p.wq, p.wk, p.wv, p.wi, p.wf, p.wo_gate, p.wo)
+    return tp_region(_mlstm, x, ws, (1, 1, 1, 1, 1, 1, 0), num_heads,
+                     num_heads=num_heads, head_dim=head_dim, chunk=chunk)
+
+
+def _mlstm(x, wq, wk, wv, wi, wf, wo_gate, wo, *, num_heads: int, head_dim: int,
+           chunk: int) -> torch.Tensor:
+    """The mLSTM on plain tensors over the heads ``wq``'s columns hold."""
     b, s, _ = x.shape
     hd = head_dim
+    num_heads = wi.shape[1]
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"sequence length {s} is not a multiple of the chunk {c}")
@@ -88,9 +100,9 @@ def mlstm_forward(p: Params, x: torch.Tensor, *, num_heads: int, head_dim: int,
     def heads(w):
         return (x @ w).reshape(b, s, num_heads, hd).transpose(1, 2)
 
-    q, k, v = heads(p.wq) / np.sqrt(hd), heads(p.wk), heads(p.wv)
-    logf = F.logsigmoid(x.to(_F32) @ p.wf).transpose(1, 2)            # [B,H,S]
-    i_gate = _input_gate(x.to(_F32) @ p.wi).transpose(1, 2)
+    q, k, v = heads(wq) / np.sqrt(hd), heads(wk), heads(wv)
+    logf = F.logsigmoid(x.to(_F32) @ wf).transpose(1, 2)              # [B,H,S]
+    i_gate = _input_gate(x.to(_F32) @ wi).transpose(1, 2)
 
     S = torch.zeros((b, num_heads, hd, hd), dtype=_F32, device=x.device)
     n = torch.zeros((b, num_heads, hd), dtype=_F32, device=x.device)
@@ -101,8 +113,8 @@ def mlstm_forward(p: Params, x: torch.Tensor, *, num_heads: int, head_dim: int,
                                logf[..., sl], i_gate[..., sl], S, n)
         hs.append(h)
     h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, num_heads * hd)
-    o = torch.sigmoid(x @ p.wo_gate)
-    return ((h.to(x.dtype) * o) @ p.wo).to(x.dtype)
+    o = torch.sigmoid(x @ wo_gate)
+    return ((h.to(x.dtype) * o) @ wo).to(x.dtype)
 
 
 def mlstm_decode_step(p: Params, x: torch.Tensor, S: torch.Tensor, n: torch.Tensor,
@@ -144,20 +156,35 @@ def init_slstm(gen: torch.Generator, d_model: int, dtype=torch.bfloat16) -> Para
     )
 
 
-def _slstm_cell(p: Params, xt, c, n, h):
-    """One sLSTM time step on ``xt`` [B, D]: returns (c, n, h)."""
-    z = torch.tanh(xt @ p.wz + h @ p.r)
-    i = _input_gate(xt.to(_F32) @ p.wi)
-    f = torch.sigmoid(xt.to(_F32) @ p.wf)
+def _slstm_cell(p, xt, c, n, h):
+    """One sLSTM time step on ``xt`` [B, D]: returns (c, n, h). ``p`` is
+    the block or a dict of its weights."""
+    p = p if isinstance(p, dict) else dict(p.named_parameters())
+    z = torch.tanh(xt @ p["wz"] + h @ p["r"])
+    i = _input_gate(xt.to(_F32) @ p["wi"])
+    f = torch.sigmoid(xt.to(_F32) @ p["wf"])
     c = f * c + i * z.to(_F32)
     n = f * n + i
-    o = torch.sigmoid(xt @ p.wo_gate).to(_F32)
+    o = torch.sigmoid(xt @ p["wo_gate"]).to(_F32)
     return c, n, (o * c / torch.clamp(n, min=1.0)).to(xt.dtype)
 
 
 def slstm_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Sequential sLSTM over time. x: [B, S, D]."""
+    """Sequential sLSTM over time. x: [B, S, D]. Its recurrent mixing
+    (``h @ r``) is dense, so on a mesh every "model" rank runs the whole
+    block on its batch shard, the weights gathered (:func:`~.sharding.tp_region`
+    with no head split)."""
+    return tp_region(_slstm, x, tuple(p.parameters()), None, 1, names=tuple(
+        n for n, _ in p.named_parameters()))
+
+
+def _slstm(x, *weights, names: tuple[str, ...]) -> torch.Tensor:
+    p = dict(zip(names, weights))
     b, s, d = x.shape
+    if x.is_meta:       # the dry-run: five [B,D]x[D,D] products a step
+        loop = [p[k] for k in ("wz", "r", "wi", "wf", "wo_gate")]
+        hs = loop_on_meta([((b, s, d), x.dtype)], 10 * s * b * d * d, x, *loop)
+        return (hs @ p["wo"]).to(x.dtype)
     c = torch.zeros((b, d), dtype=_F32, device=x.device)
     n = torch.zeros((b, d), dtype=_F32, device=x.device)
     h = torch.zeros((b, d), dtype=x.dtype, device=x.device)
@@ -165,7 +192,7 @@ def slstm_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     for t in range(s):
         c, n, h = _slstm_cell(p, x[:, t], c, n, h)
         hs.append(h)
-    return (torch.stack(hs, dim=1) @ p.wo).to(x.dtype)
+    return (torch.stack(hs, dim=1) @ p["wo"]).to(x.dtype)
 
 
 def slstm_decode_step(p: Params, x: torch.Tensor, c, n, h):
@@ -192,9 +219,10 @@ def init_mamba_head(gen: torch.Generator, d_model: int, d_inner: int, state: int
     return Params(**p)
 
 
-def _mamba_inputs(p: Params, u: torch.Tensor):
+def _mamba_inputs(p, u: torch.Tensor):
+    p = p if isinstance(p, dict) else dict(p.named_parameters())
     uf = u.to(_F32)
-    return F.softplus(uf @ p.w_dt), uf @ p.w_B, uf @ p.w_C, -torch.exp(p.a_log)
+    return F.softplus(uf @ p["w_dt"]), uf @ p["w_B"], uf @ p["w_C"], -torch.exp(p["a_log"])
 
 
 def mamba_forward(p: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
@@ -209,8 +237,21 @@ def mamba_forward(p: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     b, s, _ = x.shape
     if s % min(chunk, s):
         raise ValueError(f"sequence length {s} is not a multiple of the chunk {chunk}")
-    u = x @ p.w_in                                       # [B, S, di]
+    # dt, B and C contract over every channel, so on a mesh each "model"
+    # rank runs the whole head on its batch shard, the weights gathered
+    return tp_region(_mamba, x, tuple(p.parameters()), None, 1, names=tuple(
+        n for n, _ in p.named_parameters()))
+
+
+def _mamba(x, *weights, names: tuple[str, ...]) -> torch.Tensor:
+    p = dict(zip(names, weights))
+    b, s, _ = x.shape
+    u = x @ p["w_in"]                                    # [B, S, di]
     dt, bmat, cmat, a = _mamba_inputs(p, u)
+    if x.is_meta:       # the dry-run: one [B,di,N]·[B,N] contraction a step
+        y = loop_on_meta([((b, s, u.shape[-1]), _F32)], 2 * s * b * a.numel(),
+                         u, dt, bmat, cmat, a)
+        return (y.to(x.dtype) * F.silu(u)) @ p["w_out"]
     h = torch.zeros((b, u.shape[-1], a.shape[1]), dtype=_F32, device=x.device)
     ys = []
     for t in range(s):
@@ -218,7 +259,7 @@ def mamba_forward(p: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
             + (dt[:, t] * u[:, t].to(_F32))[..., None] * bmat[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
     y = torch.stack(ys, dim=1)
-    return (y.to(x.dtype) * F.silu(u)) @ p.w_out
+    return (y.to(x.dtype) * F.silu(u)) @ p["w_out"]
 
 
 def mamba_decode_step(p: Params, x: torch.Tensor, h: torch.Tensor):

@@ -28,9 +28,13 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.device import resolve_device
 
-from .attention import _sdpa, attn_decode, attn_forward, init_attn
+from .attention import _attend, attn_decode, attn_forward, init_attn
 from .layers import Params, activation, dense_init, ones, rms_norm
 from .moe import init_moe, moe_forward
+from .sharding import (
+    batch_only, constrain, implicit, is_dtensor, keep_only_model_shards, split_heads,
+    vocab_parallel_ce_terms, vocab_parallel_embed,
+)
 from .ssm import (
     init_mamba_head, init_mlstm, init_slstm,
     mamba_decode_step, mamba_forward,
@@ -39,7 +43,29 @@ from .ssm import (
 )
 
 __all__ = ["FFN", "init_model", "forward_train", "lm_loss", "init_decode_state",
-           "decode_step", "padded_vocab"]
+           "decode_step", "padded_vocab", "LAYER_SEQ_SHARD", "DECODE_FEATURE_SHARD"]
+
+# Decode knob: shard the residual stream's feature dim over "data" in each
+# decode layer. With weights 2D-sharded [D/data, F/model] every product
+# contracts locally and reduces only its [B, 1, F/model] output, where the
+# default gathers the weights over "data" every step (the reference's knob;
+# it acts on DTensors only).
+DECODE_FEATURE_SHARD = False
+
+# Prefill/train knob: keep activations sequence-sharded on "model" at layer
+# boundaries (Megatron-SP), so sequence-parallel attention does not
+# reshard the [B, S, D] residual stream between attention and the FFN.
+LAYER_SEQ_SHARD = False
+
+
+def _maybe_feat_shard(x):
+    return constrain(x, (None, None, "data")) if DECODE_FEATURE_SHARD else x
+
+
+def _maybe_seq_shard(x):
+    if not LAYER_SEQ_SHARD or x.ndim != 3 or x.shape[1] < 1024:
+        return x
+    return constrain(x, (None, "model", None))
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -138,6 +164,11 @@ def init_model(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
 
 def _layer_forward(cfg: ArchConfig, p: Params, x, positions, *, causal, enc_out=None):
     """One layer, full sequence. Returns (x, aux)."""
+    with implicit(p.ln1):      # also around remat's recompute in the backward
+        return _layer_body(cfg, p, x, positions, causal=causal, enc_out=enc_out)
+
+
+def _layer_body(cfg: ArchConfig, p: Params, x, positions, *, causal, enc_out=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hd = cfg.resolved_head_dim
     if cfg.family == "ssm":
@@ -171,14 +202,12 @@ def _layer_forward(cfg: ArchConfig, p: Params, x, positions, *, causal, enc_out=
 
 def _cross_attn(cfg: ArchConfig, p: Params, q_in, enc_out):
     """Whisper-style cross attention (no rope, keys from encoder output)."""
-    b, s, _ = q_in.shape
     hd = cfg.resolved_head_dim
-    t = enc_out.shape[1]
-    q = (q_in @ p.wq).reshape(b, s, cfg.num_heads, hd)
-    k = (enc_out @ p.wk).reshape(b, t, cfg.num_kv_heads, hd)
-    v = (enc_out @ p.wv).reshape(b, t, cfg.num_kv_heads, hd)
-    out = _sdpa(q, k, v, None, num_kv_groups=cfg.num_heads // cfg.num_kv_heads)
-    return out.reshape(b, s, cfg.num_heads * hd) @ p.wo
+    q = split_heads(q_in @ p.wq, cfg.num_heads, hd)
+    k = split_heads(enc_out @ p.wk, cfg.num_kv_heads, hd)
+    v = split_heads(enc_out @ p.wv, cfg.num_kv_heads, hd)
+    out = _attend(q, k, v, num_kv_groups=cfg.num_heads // cfg.num_kv_heads)
+    return out @ p.wo
 
 
 def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -223,18 +252,39 @@ def _run_layers(cfg, layers, x, positions, *, causal, enc_out=None,
     for p in layers:
         body = _remat(functools.partial(_layer_forward, cfg, p, causal=causal), remat_policy)
         x, a = body(x, positions, enc_out=enc_out)
+        x = _maybe_seq_shard(x)
         aux = aux + a
     return x, aux
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(params.embed):
+        return vocab_parallel_embed(params.embed, tokens)
     return params.embed[tokens.long()]
 
 
 def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
-    return params.embed.T if cfg.tie_embeddings else params.lm_head
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    # on a mesh, gather the [D, V] head over the fsdp axes before the
+    # product, as FSDP gathers each weight: DTensor's own choice for this
+    # product gathers the activations over "data" instead and leaves the
+    # [B, S, V/model] logits as pending sums, the largest tensors a
+    # prefill_32k rank would hold
+    return keep_only_model_shards(w)
 
 
+def _on_mesh(fn):
+    """Run ``fn(cfg, params, ...)`` in :func:`~.sharding.implicit` when the
+    parameters are DTensors."""
+    @functools.wraps(fn)
+    def wrapped(cfg, params, *args, **kwargs):
+        with implicit(params.embed):
+            return fn(cfg, params, *args, **kwargs)
+
+    return wrapped
+
+
+@_on_mesh
 def forward_train(cfg: ArchConfig, params: Params, batch: dict, *,
                   remat_policy: str = "nothing",
                   last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
@@ -271,10 +321,13 @@ def forward_train(cfg: ArchConfig, params: Params, batch: dict, *,
 
     if last_only:
         x = x[:, -1:]
-    x = rms_norm(x, params.ln_f)
+    # on a mesh the head's input keeps only its batch shards, so the
+    # product splits the vocab over "model" (see _head)
+    x = batch_only(rms_norm(x, params.ln_f))
     return x @ _head(cfg, params), aux
 
 
+@_on_mesh
 def lm_loss(cfg: ArchConfig, params: Params, batch: dict, *,
             remat_policy: str = "nothing", z_loss: float = 1e-4,
             aux_weight: float = 1e-2) -> torch.Tensor:
@@ -282,9 +335,13 @@ def lm_loss(cfg: ArchConfig, params: Params, batch: dict, *,
     the mean squared log-partition and ``aux_weight`` times the MoE
     auxiliary loss; ``batch["labels"]`` holds the targets."""
     logits, aux = forward_train(cfg, params, batch, remat_policy=remat_policy)
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    logp = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0] - logz
+    if is_dtensor(logits):
+        logz, picked = vocab_parallel_ce_terms(logits, batch["labels"])
+    else:
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    logp = picked - logz
     return -logp.mean() + z_loss * torch.square(logz).mean() + aux_weight * aux
 
 
@@ -319,6 +376,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, kv_len: int, *,
     return st
 
 
+@_on_mesh
 def decode_step(cfg: ArchConfig, params: Params, state: dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos: int, *,
                 enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
@@ -352,6 +410,7 @@ def decode_step(cfg: ArchConfig, params: Params, state: dict[str, torch.Tensor],
         cache_len = state["cache_k"].shape[2]
         write_pos = pos % cache_len if (cfg.window or cfg.encoder_layers) else pos
         for l, p in enumerate(params.layers):
+            x = _maybe_feat_shard(x)
             hn = rms_norm(x, p.ln1)
             out, _, _ = attn_decode(
                 p.attn, hn, state["cache_k"][l], state["cache_v"][l], write_pos,
@@ -372,5 +431,5 @@ def decode_step(cfg: ArchConfig, params: Params, state: dict[str, torch.Tensor],
             elif cfg.d_ff:
                 x = x + p.ffn(h2)
 
-    x = rms_norm(x, params.ln_f)
+    x = batch_only(rms_norm(x, params.ln_f))
     return (x[:, 0] @ _head(cfg, params)).to(torch.float32), state

@@ -35,6 +35,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import distributed as dist
 from torch import nn
 
 from repro_torch.device import resolve_device
@@ -66,7 +67,7 @@ def stack_named(named: dict) -> dict:
     groups: dict[tuple, dict] = {}
     for name, t in named.items():
         path, l = split_name(name)
-        groups.setdefault(path, {})[l] = t.detach()
+        groups.setdefault(path, {})[l] = _full(t.detach())
     out: dict = {}
     for path, by_layer in groups.items():
         if None in by_layer:
@@ -86,6 +87,19 @@ def stack_named(named: dict) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = host
     return out
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor: a DTensor is all-gathered (every rank must call)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _is_namedtuple(node) -> bool:
@@ -122,7 +136,7 @@ def _walk(node, prefix: tuple = ()):
         for key, value in node.items():
             yield from _walk(value, prefix + (str(key),))
     else:
-        yield prefix, torch.as_tensor(node).detach().to("cpu", copy=True)
+        yield prefix, _full(torch.as_tensor(node).detach()).to("cpu", copy=True)
 
 
 def _flatten(tree: Any) -> dict[str, torch.Tensor]:
@@ -162,8 +176,16 @@ def _write(ckpt_dir: str, step: int, flat: dict, keep: int) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
-    """Synchronous checkpoint save with atomic commit marker."""
-    return _write(ckpt_dir, step, _flatten(tree), keep)
+    """Synchronous checkpoint save with atomic commit marker. Under a
+    process group every rank calls it (DTensors are gathered whole), rank
+    0 writes, and all ranks return after a barrier that follows the write."""
+    flat = _flatten(tree)
+    stepdir = os.path.join(ckpt_dir, f"step_{step}")
+    if _writer():
+        _write(ckpt_dir, step, flat, keep)
+    if dist.is_initialized():
+        dist.barrier()
+    return stepdir
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -192,14 +214,25 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, target: Any, *, step: int | None = None,
-            device: str | torch.device | None = None) -> tuple[Any, int]:
+            device: str | torch.device | None = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``target``: ``(tree, step)``.
 
     Each leaf takes its target's dtype and lands on ``device`` (None: the
-    target leaf's own device). A module in ``target`` is restored in place,
-    its parameters taking the stored values, and returned; every other leaf
-    is a new tensor.
+    target leaf's own device); a DTensor target leaf keeps its mesh and
+    placements. ``shardings`` (the tree of
+    :class:`~repro_torch.launch.mesh.NamedSharding` that
+    ``train_state_shardings`` gives, a module's entry a dict under its
+    parameter names, ``None`` for a leaf left as above) places each leaf on
+    a mesh instead: the files hold whole tensors, so a checkpoint saved on
+    one mesh restores onto any other (elastic restore). A module in
+    ``target`` is restored in place, its parameters taking the stored
+    values, and returned; every other leaf is a new tensor.
     """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import NamedSharding, distribute
+
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
@@ -209,7 +242,7 @@ def restore(ckpt_dir: str, target: Any, *, step: int | None = None,
     dev = None if device is None else resolve_device(device)
     files: dict[str, np.ndarray] = {}
 
-    def load(path: tuple, like, layer: int | None = None) -> torch.Tensor:
+    def load(path: tuple, like, layer: int | None = None, sh=None) -> torch.Tensor:
         key = _SEP.join(path)
         if key not in files:
             info = manifest["keys"][key]
@@ -220,49 +253,72 @@ def restore(ckpt_dir: str, target: Any, *, step: int | None = None,
         else:
             t = torch.from_numpy(arr)
         like = torch.as_tensor(like)
+        if sh is None and isinstance(like, DTensor):
+            sh = NamedSharding(like.device_mesh, tuple(like.placements))
+        if sh is not None:
+            return distribute(t.to(like.dtype), sh)
         return t.to(device=like.device if dev is None else dev, dtype=like.dtype)
 
-    def load_named(prefix: tuple, name: str, like) -> torch.Tensor:
+    def load_named(prefix: tuple, name: str, like, sh=None) -> torch.Tensor:
         path, layer = split_name(name)
-        return load(prefix + path, like, layer)
+        return load(prefix + path, like, layer, sh)
 
-    def fill(node, prefix: tuple):
+    def fill(node, prefix: tuple, sh):
         if isinstance(node, nn.Module):
-            for name, p in node.named_parameters():
-                p.data = load_named(prefix, name, p)
+            sh = sh or {}
+            for name, p in list(node.named_parameters()):
+                t = load_named(prefix, name, p, sh.get(name))
+                if isinstance(t, DTensor) or isinstance(p, DTensor):
+                    owner, _, leaf = name.rpartition(".")
+                    module = node.get_submodule(owner) if owner else node
+                    setattr(module, leaf, nn.Parameter(t, requires_grad=p.requires_grad))
+                else:
+                    p.data = t
             return node
         if isinstance(node, AdamWState):
+            sh = sh or AdamWState(None, {}, {})
             return AdamWState(
-                fill(node.step, prefix + (".step",)),
-                *({k: load_named(prefix + ("." + f,), k, t) for k, t in getattr(node, f).items()}
-                  for f in ("m", "v")))
+                fill(node.step, prefix + (".step",), sh.step),
+                *({k: load_named(prefix + ("." + f,), k, t, getattr(sh, f).get(k))
+                   for k, t in getattr(node, f).items()} for f in ("m", "v")))
         if _is_namedtuple(node):
-            return type(node)(*(fill(getattr(node, f), prefix + ("." + f,))
-                                for f in node._fields))
+            sh = sh or (None,) * len(node._fields)
+            return type(node)(*(fill(getattr(node, f), prefix + ("." + f,), s)
+                                for f, s in zip(node._fields, sh)))
         if isinstance(node, (tuple, list)):
-            return type(node)(fill(v, prefix + (str(i),)) for i, v in enumerate(node))
+            sh = sh or (None,) * len(node)
+            return type(node)(fill(v, prefix + (str(i),), s)
+                              for i, (v, s) in enumerate(zip(node, sh)))
         if isinstance(node, dict):
-            return {k: fill(v, prefix + (str(k),)) for k, v in node.items()}
-        return load(prefix, node)
+            sh = sh or {}
+            return {k: fill(v, prefix + (str(k),), sh.get(k)) for k, v in node.items()}
+        return load(prefix, node, sh=sh)
 
-    return fill(target, ()), step
+    return fill(target, (), shardings), step
 
 
 class AsyncCheckpointer:
     """Background-thread checkpointing: training blocks only on the PREVIOUS
     save (bounded staleness of one). A failed write raises from the next
-    :meth:`wait` or :meth:`save`."""
+    :meth:`wait` or :meth:`save`. Under a process group every rank calls
+    :meth:`save` (DTensors are gathered whole, in the reference's layout),
+    rank 0 writes, and :meth:`wait` returns on every rank after a barrier
+    that follows the write."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._pending_barrier = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending_barrier:
+            self._pending_barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -278,8 +334,10 @@ class AsyncCheckpointer:
         # copies on the host BEFORE backgrounding: on the CPU a tensor's
         # numpy view shares its storage, and the next step updates in place
         flat = _flatten(tree)
-        self._thread = threading.Thread(target=self._run, args=(step, flat), daemon=True)
-        self._thread.start()
+        self._pending_barrier = dist.is_initialized()
+        if _writer():
+            self._thread = threading.Thread(target=self._run, args=(step, flat), daemon=True)
+            self._thread.start()
 
 
 def async_save(ckpt_dir: str, step: int, tree: Any, keep: int = 3) -> AsyncCheckpointer:
