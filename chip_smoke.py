@@ -113,12 +113,24 @@ Phases (any failure exits nonzero; none is caught and passed over):
      production mesh over a fake process group: trace seconds, FLOPs per
      device beside ``analytic_cell``'s, collective bytes by kind and axis,
      peak bytes per device, the roofline terms on the H100 constants;
- 12. a ``{"kernels": [...]}`` line, then the device line as the last line.
+ 12. the example scripts (``examples/torch``) in process at the reference
+     scripts' sizes: quickstart (MLP-B trained, refined, compiled to the
+     MAT pipeline, served), anomaly_detection (the AE's AUCs), serve_batched
+     (the three teachers once, then gather, kernel and kernel_q8 each sync
+     and async, and async on kernel with a 150 ms deadline: ``kernel``
+     bit-equal to ``gather``, ``kernel_q8`` bit-equal to the same flavour
+     served with the int8 kernels' plain versions in their place, all four
+     kernels launched, no fallback batch)
+     and train_distributed twice into one checkpoint directory (the second
+     run resumes and ends at twice the steps); wall seconds, macro-F1s,
+     AUCs, the integer agreement and flows/s per backend and flavour;
+ 13. a ``{"kernels": [...]}`` line, then the device line as the last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -2403,6 +2415,193 @@ def mesh_phase(res, fams, device, smi: str, *, rehearse: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the example scripts on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples" / "torch"
+# serve_batched's backends, each in the sync and async flavour, then one
+# run with a deadline on every request
+EXAMPLE_BACKENDS = ("gather", "kernel", "kernel_q8")
+EXAMPLE_DEADLINE_MS = 150.0
+# CPU rehearsal sizes; the card runs every script at the reference's
+EXAMPLES_REHEARSE = dict(
+    quickstart=dict(flows_per_class=48, steps=5, refine_steps=2, depth=3,
+                    request_sizes=(12, 5)),
+    anomaly_detection=dict(flows_per_class=48, steps=5, depth=4),
+    serve_batched=dict(flows_per_class=48, steps=5),
+    train_distributed=["--steps", "12", "--batch", "2", "--seq", "16"])
+
+
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(fn, *args, **kw):
+    """``fn``'s result and seconds, its prints kept back (shown if it raises)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args, **kw)
+    except BaseException:
+        print(buf.getvalue(), flush=True)
+        raise
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _plain_int8_plans():
+    """Plans built inside run the int8 kernels' plain versions in their
+    place, on the same device: the served int8 path with no kernel in it."""
+    from repro_torch.engine import plan as P
+    from repro_torch.kernels.fuzzy_lut import quantized as Q
+
+    saved = P.fuzzy_lut_q8, P.fuzzy_lut_stack_q8
+    P.fuzzy_lut_q8 = lambda *a: Q.fuzzy_lut_q8_plain(*a)[0]
+    P.fuzzy_lut_stack_q8 = lambda *a, ks, n_out: Q.fuzzy_lut_stack_q8_plain(*a, ks, n_out)[0]
+    try:
+        yield
+    finally:
+        P.fuzzy_lut_q8, P.fuzzy_lut_stack_q8 = saved
+
+
+def _same_outputs(got: dict, want: dict) -> bool:
+    """Served outputs (lists of arrays by model) equal, bit for bit."""
+    import numpy as np
+
+    return got.keys() == want.keys() and all(
+        len(got[name]) == len(outs) and all(np.array_equal(a, b) for a, b in zip(got[name], outs))
+        for name, outs in want.items())
+
+
+def example_serving(device, smi: str, *, rehearse: bool) -> dict:
+    """serve_batched: the three teachers trained and pegasusified once, then
+    served on gather, kernel and kernel_q8, each sync and async, and async
+    on kernel with a deadline. ``kernel`` bit-equal to ``gather``; each
+    ``kernel_q8`` flavour bit-equal to the same flavour served with the
+    int8 kernels' plain versions in their place (phase 1 holds each kernel
+    bit-equal to its plain version; these runs launch no kernel and are
+    not counted); no drain error, no fallback batch; without a deadline
+    nothing is shed; on the card gather launches no kernel and each kernel
+    run launches only its own, all four across the kernel runs."""
+    from repro_torch.kernels.fuzzy_lut import _lib
+
+    sb = _example("serve_batched")
+    kw = EXAMPLES_REHEARSE["serve_batched"] if rehearse else {}
+    (ds, models), build_s = _quiet(sb.build_models, device, **kw)
+    log(f"  serve_batched: 3 teachers trained ({kw.get('steps', 120)} steps) and "
+        f"pegasusified in {build_s:.2f} s")
+    runs, launches, walls = {}, dict.fromkeys(_lib.LAUNCHES, 0), []
+    configs = [(b, sync, None) for b in EXAMPLE_BACKENDS for sync in (True, False)]
+    configs.append(("kernel", False, EXAMPLE_DEADLINE_MS))
+    for backend, sync, deadline in configs:
+        before = dict(_lib.LAUNCHES)
+        r, wall = _quiet(sb.serve, models, ds, device, backend=backend, sync=sync,
+                         deadline_ms=deadline)
+        got = {k: n - before[k] for k, n in _lib.LAUNCHES.items() if n > before[k]}
+        walls.append(wall)
+        for k, n in got.items():
+            launches[k] += n
+        if r["drain_errors"] or any(r["fallback_batches"].values()):
+            raise AssertionError(f"serve_batched {backend} {r['mode']}: drain errors "
+                                 f"{r['drain_errors']}, fallback {r['fallback_batches']}")
+        if deadline is None and r["shed"]:
+            raise AssertionError(f"serve_batched {backend} {r['mode']}: {r['shed']} shed")
+        if device.type == "cuda":
+            allowed = {"gather": set(), "kernel": {"fuzzy_lut", "fuzzy_lut_stack"},
+                       "kernel_q8": {"fuzzy_lut_q8", "fuzzy_lut_stack_q8"}}[backend]
+            if not set(got) <= allowed or (backend != "gather" and set(got) != allowed):
+                raise AssertionError(f"serve_batched {backend} {r['mode']}: launches {got}")
+        runs[(backend, sync, deadline)] = r
+        tag = r["mode"] + ("" if deadline is None else f", deadline {deadline:.0f} ms")
+        log(f"  serve_batched --backend {backend:9s} ({tag}): {r['flows_per_s']:.1f} flows/s "
+            f"aggregate ({r['flows_per_burst']} flows in {r['burst_ms']:.3f} ms a burst, "
+            f"{r['batches_per_burst']} batches), shed {r['shed']}, launches {got}, run "
+            f"{wall:.2f} s on {smi}")
+    for sync in (True, False):
+        if not _same_outputs(runs[("kernel", sync, None)]["outputs"],
+                             runs[("gather", sync, None)]["outputs"]):
+            raise AssertionError(f"serve_batched: kernel differs from gather (sync={sync})")
+        before = dict(_lib.LAUNCHES)
+        with _plain_int8_plans():
+            plain, _ = _quiet(sb.serve, models, ds, device, backend="kernel_q8", sync=sync)
+        if _lib.LAUNCHES != before:
+            raise AssertionError(f"serve_batched plain int8 run launched kernels: "
+                                 f"{before} -> {_lib.LAUNCHES}")
+        if not _same_outputs(runs[("kernel_q8", sync, None)]["outputs"], plain["outputs"]):
+            raise AssertionError(f"serve_batched: kernel_q8 differs from its plain int8 "
+                                 f"version (sync={sync})")
+    if device.type == "cuda":
+        missing = [k for k, n in launches.items() if not n]
+        if missing:
+            raise AssertionError(f"serve_batched launched no {missing}")
+    log(f"  serve_batched: kernel bit-equal to gather and kernel_q8 bit-equal to its plain "
+        f"int8 version (sync and async), 0 fallback batches, launches {launches}")
+    return dict(runs=runs, seconds=build_s + sum(walls))
+
+
+def examples_phase(device, smi: str, *, rehearse: bool = False) -> dict:
+    """Phase 12: the four ``examples/torch`` scripts in process at the
+    reference scripts' sizes (``rehearse``: throwaway sizes on the CPU):
+    quickstart, anomaly_detection, serve_batched (see
+    :func:`example_serving`) and train_distributed twice into one
+    checkpoint directory, the second run resuming where the first ended."""
+    import math
+    import tempfile
+
+    from repro_torch.kernels.fuzzy_lut import _lib
+
+    on = ["--device", device.type]
+    t_phase = time.perf_counter()
+    _lib.reset_launches()
+    qs, qs_s = _quiet(_example("quickstart").main, on,
+                      **(EXAMPLES_REHEARSE["quickstart"] if rehearse else {}))
+    if not all(math.isfinite(qs[k]) for k in ("f1_dense", "f1_pegasus", "agreement")):
+        raise AssertionError(f"quickstart: {qs}")
+    log(f"  quickstart {qs_s:.2f} s: macro-F1 dense {qs['f1_dense']:.4f}, pegasus "
+        f"{qs['f1_pegasus']:.4f}; integer agreement {qs['agreement']:.4f}; Table 6 "
+        f"{qs['table6_row']!r}, violations {qs['violations'] or 'none'}; served "
+        f"{qs['served']['flows']} flows on {qs['served']['streams']} stream(s) on {smi}")
+    ad, ad_s = _quiet(_example("anomaly_detection").main, on,
+                      **(EXAMPLES_REHEARSE["anomaly_detection"] if rehearse else {}))
+    if not all(math.isfinite(v["auc"]) for v in ad.values()):
+        raise AssertionError(f"anomaly_detection: {ad}")
+    log(f"  anomaly_detection {ad_s:.2f} s: "
+        + ", ".join(f"{k} AUC {v['auc']:.4f} caught {v['caught']:.4f}" for k, v in ad.items())
+        + f" on {smi}")
+    serving = example_serving(device, smi, rehearse=rehearse)
+
+    td = _example("train_distributed")
+    argv = on + (EXAMPLES_REHEARSE["train_distributed"] if rehearse else [])
+    with tempfile.TemporaryDirectory(prefix="pegasus_ckpt_") as d:
+        first, first_s = _quiet(td.main, argv + ["--ckpt", d])
+        again, again_s = _quiet(td.main, argv + ["--ckpt", d])
+    launches = dict(_lib.LAUNCHES)
+    steps = first["step"]
+    if (first["resumed_from"] is not None or again["resumed_from"] != steps
+            or again["step"] != 2 * steps or again["checkpoints"][-1] != 2 * steps
+            or not math.isfinite(again["loss"])):
+        raise AssertionError(f"train_distributed: first {first}, resumed {again}")
+    log(f"  train_distributed: {steps} steps in {first_s:.2f} s (loss {first['loss']:.4f}, "
+        f"median {first['median_step_s']:.4f} s a step), resumed at {again['resumed_from']} "
+        f"and ended at {again['step']} in {again_s:.2f} s (loss {again['loss']:.4f}); "
+        f"checkpoints {again['checkpoints']}; mesh {again['mesh']} on {smi}")
+    return dict(quickstart=qs, anomaly=ad, serving=serving, train=(first, again),
+                wall_s=dict(quickstart=qs_s, anomaly_detection=ad_s,
+                            serve_batched=serving["seconds"], train_distributed=first_s + again_s),
+                launches=launches, seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
 # Entry point
 # ---------------------------------------------------------------------------
 
@@ -2438,6 +2637,7 @@ def main(argv=None) -> int:
         lm_phase(device, "the CPU (rehearsal)", rehearse=True)
         train_phase(device, "the CPU (rehearsal)", rehearse=True)
         mesh_phase(res, fams, device, "the CPU (rehearsal)", rehearse=True)
+        examples_phase(device, "the CPU (rehearsal)", rehearse=True)
         log(f"rehearsal done: teacher F1 {res['teacher_f1']:.4f}")
         return 0
 
@@ -2562,19 +2762,25 @@ def main(argv=None) -> int:
         f"{mesh['server']['seconds']:.2f} s, (c) {mesh['train']['seconds']:.2f} s, (d) "
         f"{mesh['dryrun_s']:.2f} s)")
 
+    log("the example scripts (examples/torch) at the reference scripts' sizes:")
+    ex = examples_phase(device, smi)
+    log(f"phase 12 took {ex['seconds']:.2f} s (wall seconds per script: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ex["wall_s"].items())
+        + f"); kernel launches {ex['launches']} on {smi}")
+
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     lines = []
     for name, source, replaces in KERNELS:
         rec = checks[name]
         launches = (res["launches"][name] + sum(f["launches"][name] for f in fams.values())
                     + multi["launches"][name] + refined["launches"][name]
-                    + lm["launches"][name] + mesh["launches"][name])
+                    + lm["launches"][name] + mesh["launches"][name] + ex["launches"][name])
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=None, lm_launches=lm["launches"][name],
-            mesh_launches=mesh["launches"][name]))
+            mesh_launches=mesh["launches"][name], example_launches=ex["launches"][name]))
     log(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -40,7 +40,7 @@ import numpy as np
 __all__ = ["MODEL_AXIS_SIZE", "MeshShape", "NamedSharding", "P", "batch_specs",
            "decode_state_specs", "distribute", "distribute_params", "fsdp_axes",
            "make_production_mesh", "mesh_device", "named", "param_spec", "param_specs",
-           "placements", "production_mesh_shape", "world_mesh"]
+           "placements", "production_mesh_shape", "replicate_unit_dims", "world_mesh"]
 
 MODEL_AXIS_SIZE = 8
 
@@ -209,6 +209,18 @@ class NamedSharding(NamedTuple):
 
     mesh: Any
     placements: tuple
+
+
+def replicate_unit_dims(sharding: NamedSharding) -> NamedSharding:
+    """``sharding`` with ``Replicate()`` on every mesh dim of size 1: a shard
+    over one rank is the same data as a replica. DTensor refuses to reshape
+    a sharded dim of size 1, which a batch of one row (or one microbatch
+    row) hits wherever a model flattens or squeezes its batch dim."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = sharding.mesh
+    return sharding._replace(placements=tuple(
+        Replicate() if mesh.size(d) == 1 else p for d, p in enumerate(sharding.placements)))
 
 
 def named(mesh, specs: Any) -> Any:

@@ -62,7 +62,7 @@ from .devices import DeviceStreamPool
 from .health import CLOSED, CircuitBreaker
 from .mesh import (
     batch_specs, decode_state_specs, distribute, distribute_params, mesh_device, named,
-    param_specs, world_mesh,
+    param_specs, replicate_unit_dims, world_mesh,
 )
 from .request import InferRequest, InferResult
 from .scheduler import (
@@ -255,10 +255,11 @@ class Server:
         if mesh is not None:
             distribute_params(self.params, named(mesh, param_specs(cfg, self.params, mesh)))
             sh = named(mesh, decode_state_specs(cfg, self.state, mesh, batch_size=batch_size))
-            self.state = {k: distribute(v, sh[k]) for k, v in self.state.items()}
-            self._tok_sh = named(mesh, batch_specs(
+            self.state = {k: distribute(v, replicate_unit_dims(sh[k]))
+                          for k, v in self.state.items()}
+            self._tok_sh = replicate_unit_dims(named(mesh, batch_specs(
                 cfg, {"tokens": torch.empty((batch_size, 1))}, mesh,
-                batch_size=batch_size))["tokens"]
+                batch_size=batch_size))["tokens"])
         self._step = make_serve_step(cfg)
 
     def generate(self, prompt_tokens: np.ndarray, max_new: int = 16) -> np.ndarray:

@@ -30,7 +30,8 @@ import torch
 from repro_torch.configs.registry import ArchConfig, get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (
-    batch_specs, distribute, distribute_params, mesh_device, named, param_specs, world_mesh,
+    batch_specs, distribute, distribute_params, mesh_device, named, param_specs,
+    replicate_unit_dims, world_mesh,
 )
 from repro_torch.models.layers import Params
 from repro_torch.models.sharding import implicit, is_dtensor, mesh_dims
@@ -213,7 +214,8 @@ class TrainLoop:
             return {k: torch.as_tensor(v, device=self.device) for k, v in host.items()}
         rows = next(iter(host.values())).shape[0]
         sh = named(self.mesh, batch_specs(self.cfg, host, self.mesh, batch_size=rows))
-        return {k: distribute(torch.as_tensor(v), sh[k]) for k, v in host.items()}
+        return {k: distribute(torch.as_tensor(v), replicate_unit_dims(sh[k]))
+                for k, v in host.items()}
 
     def run(self, batches, steps: int):
         it = iter(batches)

@@ -228,3 +228,37 @@ def test_checkpoint_restores_elastically_across_meshes(tmp_path, one_rank_mesh):
     for k, v in back.opt.m.items():
         assert torch.equal(v.full_tensor(), m_saved[k]), k
     assert sorted(os.listdir(dst)) == sorted(os.listdir(src))
+
+
+@pytest.mark.parametrize(("batch", "microbatches"), [(1, 1), (2, 2)])
+def test_trainloop_on_a_mesh_takes_one_row_batches(one_rank_mesh, batch, microbatches):
+    """A batch (or microbatch) of one row on a mesh whose data axis has size
+    1: DTensor cannot reshape a sharded dim of size 1, so the loop places
+    such a row replicated. Losses and gradients equal the unsharded loop's."""
+    from repro_torch.launch.train import TrainLoop, synthetic_batches
+
+    cfg = smoke_config("granite_20b")
+    kw = dict(device="cpu", microbatches=microbatches)
+    meshed, plain = TrainLoop(cfg, mesh=one_rank_mesh, **kw), TrainLoop(cfg, **kw)
+    for _ in range(2):
+        got = meshed.run(synthetic_batches(cfg, batch, 16), 1)
+        want = plain.run(synthetic_batches(cfg, batch, 16), 1)
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-6 * abs(float(want["loss"]))
+    for k, m in meshed.opt.m.items():
+        w = plain.opt.m[k]
+        assert float(torch.linalg.norm(m.full_tensor() - w)) <= 1e-5 * float(torch.linalg.norm(w)) + 1e-12, k
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_server_on_a_mesh_takes_one_prompt(one_rank_mesh, arch):
+    """One prompt on a (1, 1) mesh: the tokens and the decode caches keep a
+    batch dim of size 1, which DTensor cannot reshape while sharded, so the
+    server places them replicated over mesh dims of size 1. Tokens equal the
+    unsharded server's."""
+    from repro_torch.launch.serve import Server
+
+    cfg = smoke_config(arch)
+    prompt = np.array([[3]], dtype=np.int32)
+    kw = dict(device="cpu", kv_len=32, batch_size=1)
+    got = Server(cfg, mesh=one_rank_mesh, **kw).generate(prompt, max_new=3)
+    np.testing.assert_array_equal(got, Server(cfg, **kw).generate(prompt, max_new=3))
