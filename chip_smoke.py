@@ -110,9 +110,12 @@ Phases (any failure exits nonzero; none is caught and passed over):
      unsharded loop, 3 steps of 8 x 1024 tokens: losses within 1e-6
      relative, s/step and peak memory of both; (d) the dry-run of
      Qwen2-VL-2B's train_4k, prefill_32k and decode_32k on the 256-rank
-     production mesh over a fake process group: trace seconds, FLOPs per
-     device beside ``analytic_cell``'s, collective bytes by kind and axis,
-     peak bytes per device, the roofline terms on the H100 constants;
+     production mesh over a fake process group, plain, then train_4k at 8
+     microbatches and prefill/decode with ``optimized=True``: trace
+     seconds, FLOPs per device beside ``analytic_cell``'s, collective bytes
+     by kind and axis, peak bytes per device, the roofline terms and bound
+     on the H100 constants; the run fails when a rank's train_4k FLOPs at
+     8 microbatches exceed 1.1x those at 1;
  12. the example scripts (``examples/torch``) in process at the reference
      scripts' sizes: quickstart (MLP-B trained, refined, compiled to the
      MAT pipeline, served), anomaly_detection (the AE's AUCs), serve_batched
@@ -2175,8 +2178,14 @@ MESH_FULL = dict(batch=8, kv_len=64, max_new=32, profile_steps=8, train_batch=8,
 MESH_REHEARSE = dict(batch=2, kv_len=16, max_new=4, profile_steps=2, train_batch=2,
                      train_seq=64, train_steps=3)
 MESH_LOSS_RTOL = 1e-6
-# (d) the supported cells of LM_ARCH on the 256-rank production mesh
-MESH_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# (d) the supported cells of LM_ARCH on the 256-rank production mesh, each
+# plain, then train_4k in 8 microbatches and prefill/decode with the
+# reference's --optimized knobs; a rank's train_4k FLOPs at 8 microbatches
+# stay within MESH_MICROBATCH_FLOPS_RATIO of one microbatch's
+MESH_CELLS = (("train_4k", {}), ("train_4k", {"microbatches": 8}), ("prefill_32k", {}),
+              ("prefill_32k", {"optimized": True}), ("decode_32k", {}),
+              ("decode_32k", {"optimized": True}))
+MESH_MICROBATCH_FLOPS_RATIO = 1.1
 
 
 def sharded_plans(res, fams, device, smi: str) -> dict:
@@ -2338,17 +2347,26 @@ def mesh_trainloop(cfg, mesh, device, smi: str, sizes: dict) -> dict:
 
 def mesh_dryrun(arch: str, *, smoke: bool) -> list:
     """(d) The supported cells of ``arch`` on the 256-rank production mesh
-    over a fake process group (no card, no allocation)."""
+    over a fake process group (no card, no allocation), each with the
+    knobs of ``MESH_CELLS``; raises when a rank's train_4k FLOPs at 8
+    microbatches exceed ``MESH_MICROBATCH_FLOPS_RATIO`` times one
+    microbatch's (the rank's work would grow with the batch's cut)."""
     from repro_torch.launch.dryrun import dryrun_cell
 
     rows = []
-    for cell in MESH_CELLS:
-        r = dryrun_cell(arch, cell, smoke=smoke)
+    for cell, knobs in MESH_CELLS:
+        r = dryrun_cell(arch, cell, smoke=smoke, **knobs)
         if "skipped" in r or not r["flops"] > 0:
-            raise AssertionError(f"dry-run {arch} {cell}: {r}")
+            raise AssertionError(f"dry-run {arch} {cell} {knobs}: {r}")
         if r["kind"] == "train" and not r["collective_total"] > 0:
             raise AssertionError(f"dry-run {arch} {cell}: a train step moved no collective")
+        r["knobs"] = knobs
         rows.append(r)
+    one, eight = rows[0], rows[1]       # train_4k at 1 and 8 microbatches
+    if eight["flops"] > MESH_MICROBATCH_FLOPS_RATIO * one["flops"]:
+        raise AssertionError(
+            f"dry-run {arch} train_4k: FLOPs/rank at 8 microbatches {eight['flops']:.4e} "
+            f"exceed {MESH_MICROBATCH_FLOPS_RATIO} x those at 1 ({one['flops']:.4e})")
     return rows
 
 
@@ -2401,14 +2419,24 @@ def mesh_phase(res, fams, device, smi: str, *, rehearse: bool = False) -> dict:
     rows = mesh_dryrun(LM_ARCH, smoke=rehearse)
     for r in rows:
         t = r["roofline"]
-        log(f"  (d) dry-run {r['arch']} {r['shape']} on {r['mesh']} ({r['ranks']} fake ranks): "
-            f"trace {r['trace_s']} s; FLOPs/device {r['flops']:.4e} (analytic "
-            f"{r['analytic_flops']:.4e}); collective B/device {r['collective_total']} "
+        log(f"  (d) dry-run {r['arch']} {r['shape']} {r['knobs'] or 'plain'} on {r['mesh']} "
+            f"({r['ranks']} fake ranks): trace {r['trace_s']} s; FLOPs/device "
+            f"{r['flops']:.4e} (analytic {r['analytic_flops']:.4e}, ratio "
+            f"{r['flops'] / r['analytic_flops']:.4f}); collective B/device {r['collective_total']} "
             f"{ {k: v for k, v in r['collective_bytes'].items() if v} } by axis "
             f"{r['collective_by_axis']}; peak bytes/device {r['memory']['peak_bytes']}; "
             f"roofline on the H100 SXM5 datasheet (700 W): compute {t['compute_s'] * 1e3:.3f} "
             f"ms, memory {t['memory_s'] * 1e3:.3f} ms, collective {t['collective_s'] * 1e3:.3f} "
-            f"ms, {t['dominant']}-bound")
+            f"ms, {t['dominant']}-bound, bound {t['bound_step_s']:.6g} s")
+    one, eight = rows[0], rows[1]       # MESH_CELLS' order
+    log(f"      train_4k at 8 microbatches / 1: FLOPs/rank {eight['flops'] / one['flops']:.4f} "
+        f"(limit {MESH_MICROBATCH_FLOPS_RATIO}), collective B "
+        f"{eight['collective_total'] / one['collective_total']:.4f}, peak "
+        f"{eight['memory']['peak_bytes'] / one['memory']['peak_bytes']:.4f}")
+    plain, knobs = rows[4], rows[5]
+    log(f"      decode_32k --optimized / plain: collective B "
+        f"{knobs['collective_total'] / plain['collective_total']:.4f}, FLOPs/rank "
+        f"{knobs['flops'] / plain['flops']:.4f}")
     dry_s = time.perf_counter() - t0
     return dict(plans=plans, server=srv, train=tr, dryrun=rows, dryrun_s=dry_s,
                 launches=plans["launches"], seconds=time.perf_counter() - t_phase)

@@ -15,7 +15,8 @@ import torch
 from .layers import Params, dense_init, mrope_positions, rope, rope_mrope, zeros
 from .shape_only import loop_on_meta
 from .sharding import (
-    constrain, is_dtensor, local_region, mesh_dims, replicate, shard_offset, split_heads,
+    add_bias, constrain, dense, is_dtensor, local_region, mesh_dims, replicate, shard_offset,
+    split_heads, write_at,
 )
 
 __all__ = ["init_attn", "attn_forward", "attn_decode", "SEQ_PARALLEL_ATTN"]
@@ -41,11 +42,10 @@ def init_attn(gen: torch.Generator, d_model: int, num_heads: int, num_kv: int,
     return Params(**p)
 
 
-def _project_qkv(p: Params, x, num_heads, num_kv, head_dim):
-    b, s, _ = x.shape
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+def _project_qkv(p: Params, x, num_heads, num_kv, head_dim, *, stationary: bool = False):
+    q, k, v = (dense(x, getattr(p, w), stationary=stationary) for w in ("wq", "wk", "wv"))
     if "bq" in p:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+        q, k, v = add_bias(q, p.bq), add_bias(k, p.bk), add_bias(v, p.bv)
     return (split_heads(q, num_heads, head_dim), split_heads(k, num_kv, head_dim),
             split_heads(v, num_kv, head_dim))
 
@@ -258,18 +258,18 @@ def _decode_split_kv(q, k, v, mask, g: int):
     lmask = mask[off[1]:off[1] + local_t[1]]
     hd = q.shape[-1]
 
-    def scores(ql, kl):
-        return torch.where(lmask, _scores(ql, kl, g, hd), -1e30)
+    # the scores [B, Kv, G, 1, T] once, their T split as the cache's
+    spl = pl(Shard(4))
+    sc = local_region(lambda ql, kl: torch.where(lmask, _scores(ql, kl, g, hd), -1e30),
+                      (q, k), (rep, kpl), spl)
+    m = local_region(lambda sl: sl.amax(-1), (sc,), (spl,), pl(Partial("max")))
 
-    m = local_region(lambda ql, kl: scores(ql, kl).amax(-1), (q, k), (rep, kpl),
-                     pl(Partial("max")))
-
-    def sums(ql, kl, vl, ml):
-        pr = torch.exp(scores(ql, kl) - ml[..., None])
+    def sums(sl, vl, ml):
+        pr = torch.exp(sl - ml[..., None])
         return pr.sum(-1), torch.einsum("bkgst,btkh->bskgh", pr, vl.to(torch.float32))
 
     part = pl(Partial("sum"))
-    l, acc = local_region(sums, (q, k, v, m), (rep, kpl, kpl, rep), (part, part))
+    l, acc = local_region(sums, (sc, v, m), (spl, kpl, rep), (part, part))
     l, acc = l.redistribute(k.device_mesh, rep), acc.redistribute(k.device_mesh, rep)
     out = acc / l.permute(0, 3, 1, 2)[..., None]
     return out.reshape(*q.shape).to(q.dtype)
@@ -298,7 +298,7 @@ def attn_forward(
         k, v = replicate(k), replicate(v)
     out = _attend(q, k, v, num_kv_groups=num_heads // num_kv, causal=causal, window=window,
                   chunked=impl == "chunked" and s > 512)
-    return out @ p.wo
+    return dense(out, p.wo)
 
 
 def attn_decode(
@@ -319,15 +319,15 @@ def attn_decode(
     Unlike the reference, the caches are written in place (the returned
     caches are the ones passed in): a decode step copies no cache.
     """
-    q, k, v = _project_qkv(p, x, num_heads, num_kv, head_dim)
+    q, k, v = _project_qkv(p, x, num_heads, num_kv, head_dim, stationary=True)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k = _rotary(q, k, posv, rope_kind)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    write_at(cache_k, pos, k[:, 0])
+    write_at(cache_v, pos, v[:, 0])
 
     j = torch.arange(cache_k.shape[1], device=x.device)
     mask = j <= pos
     if window is not None:
         mask = mask & (j > pos - window)
     out = _decode_attend(q, cache_k, cache_v, mask, num_kv_groups=num_heads // num_kv)
-    return out @ p.wo, cache_k, cache_v
+    return dense(out, p.wo, stationary=True), cache_k, cache_v

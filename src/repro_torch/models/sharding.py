@@ -10,9 +10,24 @@ the port states a placement itself, each a collective the dry-run counts:
     returned as it is (the reference's ``try/except`` without a mesh).
   * :func:`replicate` — an all-gather for an op with no rule for a sharded
     operand (``argmax`` over the vocab; the caller says why).
-  * :func:`batch_only`, :func:`keep_only_model_shards` — the LM head's
-    input keeps only its batch shards and the head is gathered over the
-    fsdp axes, so the product splits the vocab over "model".
+  * :func:`dense` — every weight product of the attention, the FFN and
+    the LM head, its strategy stated per mesh dim from the layouts of its
+    operands, never left to DTensor's propagation (which picks one per call
+    from the tensor sizes). Over a mesh dim that splits the input's tokens
+    the weight is gathered (ZeRO-3), or, with ``stationary=True`` (the
+    decode step, whose activations are a few rows), the weight stays and
+    the rows move; over the other mesh dims the product follows the
+    weight's own shards (tensor parallel). :func:`add_bias` adds a bias on
+    the output's shards.
+  * :func:`split_tokens` — the layout of the residual stream between the
+    layers of a full-sequence forward: rows on the mesh dims that carry the
+    batch, the sequence on "model", the features whole. :func:`like`
+    brings a block's output to the residual stream's placements before
+    the add.
+  * :func:`batch_only` — the LM head's input keeps only its batch shards,
+    so the head product splits the vocab over "model".
+  * :func:`write_at` — one position written into a decode cache by the
+    rank that holds it.
   * :func:`split_heads` — projections viewed as heads; gathered over mesh
     dims that would split a head.
   * :func:`vocab_parallel_embed`, :func:`vocab_parallel_ce_terms` — the
@@ -39,10 +54,10 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["batch_only", "constrain", "implicit", "is_dtensor", "keep_only_model_shards",
-           "local_region", "mesh_dims", "replicate",
-           "shard_offset", "split_heads", "tp_region", "vocab_parallel_ce_terms",
-           "vocab_parallel_embed"]
+__all__ = ["add_bias", "batch_only", "constrain", "dense", "implicit", "is_dtensor", "like",
+           "local_region", "mesh_dims", "replicate", "shard_offset", "split_heads",
+           "split_tokens", "tp_region", "vocab_parallel_ce_terms", "vocab_parallel_embed",
+           "write_at"]
 
 
 @contextlib.contextmanager
@@ -83,32 +98,148 @@ def constrain(x, spec):
 
 
 def batch_only(x):
-    """``x`` with its batch shards (dim 0) over the fsdp axes kept and
-    everything else gathered over every mesh dim, "model" included (where
-    DTensor may have split the batch too), pending sums reduced; a plain
-    tensor as it is."""
+    """``x`` with its rows (dim 0) split over the mesh dims other than
+    "model" that split its rows, or its features where its rows divide
+    (the feature-sharded decode stream), and everything else gathered over
+    every mesh dim, pending sums reduced; a plain tensor as it is."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate, Shard
 
-    names = x.device_mesh.mesh_dim_names
-    pl = [p if p == Shard(0) and names[i] != "model" else Replicate()
-          for i, p in enumerate(x.placements)]
-    return x.redistribute(x.device_mesh, pl)
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    last = Shard(x.ndim - 1)
+    pl = [p if mesh.size(i) == 1 and not p.is_partial() else
+          Shard(0) if names[i] != "model" and (p == Shard(0) or p == last
+                                               and x.shape[0] % mesh.size(i) == 0)
+          else Replicate() for i, p in enumerate(x.placements)]
+    return x.redistribute(mesh, pl)
 
 
-def keep_only_model_shards(x):
-    """``x`` gathered over every mesh dim but "model" (FSDP's all-gather of
-    a weight before its use; tensor-parallel shards stay); a plain tensor
-    as it is."""
+def split_tokens(x):
+    """The residual stream ``x`` [B, S, D] of a full-sequence forward at its
+    layout between layers: rows split over the mesh dims other than
+    "model" that split them now (the fsdp axes, as ``batch_specs`` places
+    the batch), the sequence over "model" when it divides, the features
+    whole, pending sums reduced. Every dense product of a layer then runs
+    on each rank's tokens with its weights gathered, so a rank's work is
+    its share of the tokens however the batch is cut. A plain tensor as it
+    is."""
     if not is_dtensor(x):
         return x
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
 
-    names = x.device_mesh.mesh_dim_names
-    pl = [p if names[i] == "model" and not p.is_partial() else Replicate()
-          for i, p in enumerate(x.placements)]
-    return x.redistribute(x.device_mesh, pl)
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    pl = []
+    for i, p in enumerate(x.placements):
+        if mesh.size(i) == 1:
+            pl.append(Replicate() if p.is_partial() else p)
+        elif names[i] != "model":
+            pl.append(Shard(0) if p == Shard(0) else Replicate())
+        else:
+            pl.append(Shard(1) if x.shape[1] % mesh.size(i) == 0 else Replicate())
+    return x.redistribute(mesh, pl)
+
+
+def like(y, x):
+    """``y`` redistributed to ``x``'s placements (a block's output before
+    it is added to the residual stream ``x``); ``y`` as it is off a mesh."""
+    if not is_dtensor(y):
+        return y
+    return y.redistribute(y.device_mesh, x.placements)
+
+
+def dense(x, w, *, stationary: bool = False):
+    """``x [..., K] @ w [K, N]`` with its strategy stated per mesh dim:
+
+      * where ``x``'s tokens (a dim but the last) are split, the weight is
+        gathered and the output split like ``x`` (ZeRO-3: FSDP's gather
+        before use). With ``stationary`` a sharded weight stays where it
+        is and ``x``'s rows move instead: they become slices of K where
+        the weight splits K, and are gathered where it splits N;
+      * where ``x``'s features or the weight's K are split, each rank
+        contracts its slice of K and the sums are reduced;
+      * where the weight's N is split, each rank computes its columns and
+        the output's features are split (column-parallel);
+      * elsewhere each rank computes the same product.
+
+    Sums are reduced onto ``x``'s token split where it had one, else
+    replicated, so the output holds no pending sum. Mesh dims of size 1
+    keep every placement. A layout no rule takes (a pending sum in ``x``,
+    ``x``'s features split where the weight splits N) raises: the choice
+    is never DTensor's. Plain tensors multiply as they are."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = w.device_mesh if is_dtensor(w) else x.device_mesh
+    x, w = _as_dtensor(x, mesh), _as_dtensor(w, mesh)
+    last = Shard(x.ndim - 1)
+    x_in, w_in, out, settled = [], [], [], []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        if mesh.size(i) == 1:
+            x_in.append(xp)
+            w_in.append(wp)
+            out.append(Replicate())
+            settled.append(Replicate())
+            continue
+        if xp.is_partial() or (xp == last and wp == Shard(1)):
+            raise ValueError(f"dense: no stated strategy for x {tuple(x.placements)} "
+                             f"and w {tuple(w.placements)} on mesh dim {i}")
+        tokens = isinstance(xp, Shard) and xp != last
+        if tokens and not (stationary and wp in (Shard(0), Shard(1))):
+            x_in.append(xp)                          # ZeRO-3: the weight gathered
+            w_in.append(Replicate())
+            out.append(xp)
+        elif xp == last or wp == Shard(0):
+            x_in.append(last)                        # each rank's slice of K
+            w_in.append(Shard(0))
+            out.append(Partial("sum"))
+        elif wp == Shard(1):
+            x_in.append(Replicate())                 # column-parallel
+            w_in.append(Shard(1))
+            out.append(last)
+        else:
+            x_in.append(Replicate())
+            w_in.append(Replicate())
+            out.append(Replicate())
+        settled.append(xp if tokens else Replicate() if out[-1].is_partial() else out[-1])
+    y = local_region(torch.matmul, (x, w), (x_in, w_in), out)
+    return y.redistribute(mesh, settled) if settled != out else y
+
+
+def add_bias(y, b):
+    """``y + b`` for a bias ``b`` [N] over ``y``'s last dim, the bias placed
+    on ``y``'s feature shards; plain tensors add as they are."""
+    if not is_dtensor(y):
+        return y + b
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = y.device_mesh
+    last = Shard(y.ndim - 1)
+    b_pl = [bp if mesh.size(i) == 1 else Shard(0) if p == last else Replicate()
+            for i, (p, bp) in enumerate(zip(y.placements, b.placements))]
+    return local_region(torch.add, (y, b), (y.placements, b_pl), y.placements)
+
+
+def write_at(cache, pos: int, value) -> None:
+    """``cache[:, pos] = value`` in place, for a decode cache [B, T, ...]
+    and ``value`` [B, ...]. On a mesh ``value`` is placed as the cache
+    without its dim 1 and only the rank whose shard of T holds ``pos``
+    writes it: the cache never moves."""
+    if not is_dtensor(cache):
+        cache[:, pos] = value.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    pl = [Replicate() if p == Shard(1) else Shard(p.dim - 1)
+          if isinstance(p, Shard) and p.dim > 1 else p for p in cache.placements]
+    val = _as_dtensor(value, mesh).redistribute(mesh, pl).to_local()
+    local, off = shard_offset(cache.shape, mesh, cache.placements)
+    if off[1] <= pos < off[1] + local[1]:
+        cache.to_local()[:, pos - off[1]] = val.to(cache.dtype)
 
 
 def replicate(x):
@@ -139,8 +270,15 @@ def local_region(fn, args, in_placements, out_placements):
 
     mesh = next(a.device_mesh for a in args if is_dtensor(a))
     outs = out_placements if isinstance(out_placements[0], (list, tuple)) else [out_placements]
-    local = [_ContiguousGrad.apply(_local(a.redistribute(mesh, pl), outs))
-             if pl is not None else a for a, pl in zip(args, in_placements)]
+    local = []
+    for a, pl in zip(args, in_placements):
+        if pl is not None and torch.is_grad_enabled():
+            # a redistribution to the same placements still reduces a
+            # pending-sum gradient in its backward
+            a = _ContiguousGrad.apply(_local(a.redistribute(mesh, pl), outs))
+        elif pl is not None:
+            a = (a if tuple(a.placements) == tuple(pl) else a.redistribute(mesh, pl)).to_local()
+        local.append(a)
     out = fn(*local)
     if isinstance(out, tuple):
         return tuple(DTensor.from_local(o.contiguous(), mesh, pl, run_check=False)

@@ -32,7 +32,7 @@ from .attention import _attend, attn_decode, attn_forward, init_attn
 from .layers import Params, activation, dense_init, ones, rms_norm
 from .moe import init_moe, moe_forward
 from .sharding import (
-    batch_only, constrain, implicit, is_dtensor, keep_only_model_shards, split_heads,
+    batch_only, constrain, dense, implicit, is_dtensor, like, split_heads, split_tokens,
     vocab_parallel_ce_terms, vocab_parallel_embed,
 )
 from .ssm import (
@@ -47,9 +47,10 @@ __all__ = ["FFN", "init_model", "forward_train", "lm_loss", "init_decode_state",
 
 # Decode knob: shard the residual stream's feature dim over "data" in each
 # decode layer. With weights 2D-sharded [D/data, F/model] every product
-# contracts locally and reduces only its [B, 1, F/model] output, where the
-# default gathers the weights over "data" every step (the reference's knob;
-# it acts on DTensors only).
+# contracts its slice of D and reduces only its [B, 1, F/model] output;
+# plain decode keeps the rows on "data" and its products turn them into
+# such slices first (``sharding.dense(stationary=True)``), so neither moves
+# a weight (the reference's knob; it acts on DTensors only).
 DECODE_FEATURE_SHARD = False
 
 # Prefill/train knob: keep activations sequence-sharded on "model" at layer
@@ -58,14 +59,11 @@ DECODE_FEATURE_SHARD = False
 LAYER_SEQ_SHARD = False
 
 
-def _maybe_feat_shard(x):
-    return constrain(x, (None, None, "data")) if DECODE_FEATURE_SHARD else x
-
-
-def _maybe_seq_shard(x):
-    if not LAYER_SEQ_SHARD or x.ndim != 3 or x.shape[1] < 1024:
-        return x
-    return constrain(x, (None, "model", None))
+def _decode_boundary(x):
+    """The decode stream's layout at each layer on a mesh: its rows on the
+    batch's mesh dims (pending sums of the embedding reduced), or its
+    features on "data" with the ``DECODE_FEATURE_SHARD`` knob."""
+    return constrain(x, (None, None, "data")) if DECODE_FEATURE_SHARD else batch_only(x)
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -77,20 +75,22 @@ def padded_vocab(cfg: ArchConfig) -> int:
 class FFN(Params):
     """One dense (optionally gated) FFN: ``act(x@w_gate) * (x@w_in) @ w_out``.
 
-    Called as a module (``p(x)``), so a forward hook sees its input.
+    Called as a module (``p(x)``), so a forward hook sees its input. On a
+    mesh each product takes :func:`~.sharding.dense`'s stated strategy;
+    ``stationary`` (the decode step) keeps the weights where they lie.
     """
 
     def __init__(self, act: str, **weights):
         super().__init__(**weights)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, stationary: bool = False) -> torch.Tensor:
         act = activation(self.act)
+        h = act(dense(x, self.w_gate if "w_gate" in self else self.w_in,
+                      stationary=stationary))
         if "w_gate" in self:
-            h = act(x @ self.w_gate) * (x @ self.w_in)
-        else:
-            h = act(x @ self.w_in)
-        return h @ self.w_out
+            h = h * dense(x, self.w_in, stationary=stationary)
+        return dense(h, self.w_out, stationary=stationary)
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +172,9 @@ def _layer_body(cfg: ArchConfig, p: Params, x, positions, *, causal, enc_out=Non
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hd = cfg.resolved_head_dim
     if cfg.family == "ssm":
-        x = x + mlstm_forward(p.mlstm, rms_norm(x, p.ln1),
-                              num_heads=cfg.num_heads, head_dim=hd)
-        x = x + slstm_forward(p.slstm, rms_norm(x, p.ln_s))
+        x = x + like(mlstm_forward(p.mlstm, rms_norm(x, p.ln1),
+                                   num_heads=cfg.num_heads, head_dim=hd), x)
+        x = x + like(slstm_forward(p.slstm, rms_norm(x, p.ln_s)), x)
         return x, aux
 
     h = rms_norm(x, p.ln1)
@@ -184,11 +184,11 @@ def _layer_body(cfg: ArchConfig, p: Params, x, positions, *, causal, enc_out=Non
         causal=causal, window=cfg.window or None, rope_kind=cfg.rope_kind,
     )
     if cfg.family == "hybrid":
-        attn_out = attn_out + mamba_forward(p.mamba, h)
-    x = x + attn_out
+        attn_out = like(attn_out, x) + like(mamba_forward(p.mamba, h), x)
+    x = x + like(attn_out, x)
 
     if enc_out is not None:
-        x = x + _cross_attn(cfg, p.xattn, rms_norm(x, p.ln_x), enc_out)
+        x = x + like(_cross_attn(cfg, p.xattn, rms_norm(x, p.ln_x), enc_out), x)
 
     h2 = rms_norm(x, p.ln2)
     if cfg.family == "moe":
@@ -197,17 +197,18 @@ def _layer_body(cfg: ArchConfig, p: Params, x, positions, *, causal, enc_out=Non
         ffn_out = p.ffn(h2)
     else:
         return x, aux
-    return x + ffn_out, aux
+    return x + like(ffn_out, x), aux
 
 
-def _cross_attn(cfg: ArchConfig, p: Params, q_in, enc_out):
+def _cross_attn(cfg: ArchConfig, p: Params, q_in, enc_out, *, stationary: bool = False):
     """Whisper-style cross attention (no rope, keys from encoder output)."""
     hd = cfg.resolved_head_dim
-    q = split_heads(q_in @ p.wq, cfg.num_heads, hd)
-    k = split_heads(enc_out @ p.wk, cfg.num_kv_heads, hd)
-    v = split_heads(enc_out @ p.wv, cfg.num_kv_heads, hd)
+    kw = dict(stationary=stationary)
+    q = split_heads(dense(q_in, p.wq, **kw), cfg.num_heads, hd)
+    k = split_heads(dense(enc_out, p.wk, **kw), cfg.num_kv_heads, hd)
+    v = split_heads(dense(enc_out, p.wv, **kw), cfg.num_kv_heads, hd)
     out = _attend(q, k, v, num_kv_groups=cfg.num_heads // cfg.num_kv_heads)
-    return out @ p.wo
+    return dense(out, p.wo, **kw)
 
 
 def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -246,13 +247,22 @@ def _remat(fn, remat_policy: str):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
+def _layer_boundary(x):
+    """The residual stream's layout between layers on a mesh:
+    :func:`~.sharding.split_tokens`, or the ``LAYER_SEQ_SHARD`` knob's."""
+    if LAYER_SEQ_SHARD and x.shape[1] >= 1024:
+        return constrain(x, (None, "model", None))
+    return split_tokens(x)
+
+
 def _run_layers(cfg, layers, x, positions, *, causal, enc_out=None,
                 remat_policy: str = "nothing"):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _layer_boundary(x)
     for p in layers:
         body = _remat(functools.partial(_layer_forward, cfg, p, causal=causal), remat_policy)
         x, a = body(x, positions, enc_out=enc_out)
-        x = _maybe_seq_shard(x)
+        x = _layer_boundary(x)
         aux = aux + a
     return x, aux
 
@@ -263,14 +273,14 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens.long()]
 
 
-def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
+def _logits(cfg: ArchConfig, params: Params, x, *, stationary: bool = False):
+    """The LM head's product. On a mesh its input keeps only its batch
+    shards (``batch_only``), so the [D, V] head is gathered over the fsdp
+    axes (or, in the decode step, stays and the few rows move) and the
+    vocab splits over "model": the [B, S, V/model] logits are the largest
+    tensors a prefill_32k rank holds."""
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    # on a mesh, gather the [D, V] head over the fsdp axes before the
-    # product, as FSDP gathers each weight: DTensor's own choice for this
-    # product gathers the activations over "data" instead and leaves the
-    # [B, S, V/model] logits as pending sums, the largest tensors a
-    # prefill_32k rank would hold
-    return keep_only_model_shards(w)
+    return dense(x, w, stationary=stationary)
 
 
 def _on_mesh(fn):
@@ -319,12 +329,10 @@ def forward_train(cfg: ArchConfig, params: Params, batch: dict, *,
         x, aux = _run_layers(cfg, params.layers, x, pos, causal=True,
                              remat_policy=remat_policy)
 
+    x = batch_only(rms_norm(x, params.ln_f))
     if last_only:
         x = x[:, -1:]
-    # on a mesh the head's input keeps only its batch shards, so the
-    # product splits the vocab over "model" (see _head)
-    x = batch_only(rms_norm(x, params.ln_f))
-    return x @ _head(cfg, params), aux
+    return _logits(cfg, params, x), aux
 
 
 @_on_mesh
@@ -410,7 +418,7 @@ def decode_step(cfg: ArchConfig, params: Params, state: dict[str, torch.Tensor],
         cache_len = state["cache_k"].shape[2]
         write_pos = pos % cache_len if (cfg.window or cfg.encoder_layers) else pos
         for l, p in enumerate(params.layers):
-            x = _maybe_feat_shard(x)
+            x = _decode_boundary(x)
             hn = rms_norm(x, p.ln1)
             out, _, _ = attn_decode(
                 p.attn, hn, state["cache_k"][l], state["cache_v"][l], write_pos,
@@ -420,16 +428,17 @@ def decode_step(cfg: ArchConfig, params: Params, state: dict[str, torch.Tensor],
             )
             if cfg.family == "hybrid":
                 mo, state["mamba_h"][l] = mamba_decode_step(p.mamba, hn, state["mamba_h"][l])
-                out = out + mo
-            x = x + out
+                out = like(out, x) + like(mo, x)
+            x = x + like(out, x)
             if enc_out is not None:
-                x = x + _cross_attn(cfg, p.xattn, rms_norm(x, p.ln_x), enc_out)
+                x = x + like(_cross_attn(cfg, p.xattn, rms_norm(x, p.ln_x), enc_out,
+                                         stationary=True), x)
             h2 = rms_norm(x, p.ln2)
             if cfg.family == "moe":
                 f, _ = moe_forward(p.moe, h2, top_k=cfg.top_k, act=cfg.act)
-                x = x + f
+                x = x + like(f, x)
             elif cfg.d_ff:
-                x = x + p.ffn(h2)
+                x = x + like(p.ffn(h2, stationary=True), x)
 
     x = batch_only(rms_norm(x, params.ln_f))
-    return (x[:, 0] @ _head(cfg, params)).to(torch.float32), state
+    return _logits(cfg, params, x[:, 0], stationary=True).to(torch.float32), state

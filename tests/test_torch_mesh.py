@@ -179,7 +179,16 @@ def test_server_and_trainloop_on_2x2_gloo_mesh_match_unsharded(tmp_path):
     _spawn(ranks.parity_rank, tmp_path, list(ARCH_IDS))
     with open(tmp_path / "out.json") as f:
         out = json.load(f)
+    with open(tmp_path / "microbatches.json") as f:
+        micro = json.load(f)
     assert sorted(out) == sorted(ARCH_IDS)
+    # TrainLoop(microbatches=2) on the mesh: each microbatch is a row of
+    # every "data" shard, other rows than the unsharded slices, the same sums
+    assert micro["loss_err"] < 1e-6, micro["loss_err"]
+    assert micro["moved_any"] > 1e-4
+    worst = max(micro["grad_rel"].items(), key=lambda kv: kv[1])
+    assert worst[1] < 1e-5, (ranks.MICROBATCH_ARCH, worst)
+    assert max(micro["moved_rel"].values()) < 2e-2
     for arch, r in out.items():
         assert r["logits_rel"] < 1e-5, (arch, r["logits_rel"])
         assert r["tokens_ok"], arch

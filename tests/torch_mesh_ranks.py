@@ -16,6 +16,8 @@ import torch.distributed as dist
 
 DECODE_STEPS = 4
 BATCH = 4
+# the architecture trained in microbatches on the mesh as well
+MICROBATCH_ARCH = "qwen2_vl_2b"
 
 
 def rel(a, b) -> float:
@@ -49,29 +51,41 @@ def _serve(cfg, mesh, prompts):
     return np.stack(logits), srv.generate(prompts, max_new=DECODE_STEPS)
 
 
-def _train(cfg, mesh):
+def _train(cfg, mesh, microbatches: int = 1):
     """(the loss of TrainLoop's first step, Adam's m after it, which is
     (1 - b1) times the clipped gradient, and what one AdamW step at a
-    constant lr of 3e-4 from a fresh optimizer moved each parameter)."""
+    constant lr of 3e-4 from a fresh optimizer moved each parameter), each
+    step over ``microbatches`` row slices."""
     from repro_torch.launch.train import TrainLoop, make_train_step, synthetic_batches
     from repro_torch.train.optimizer import adamw_init
 
-    loop = TrainLoop(cfg, mesh=mesh, device="cpu")
+    loop = TrainLoop(cfg, mesh=mesh, device="cpu", microbatches=microbatches)
     batches = synthetic_batches(cfg, BATCH, 16, seed=1)
     loss = float(loop.run(batches, 1)["loss"])
     m = {k: _whole(v).numpy() for k, v in loop.opt.m.items()}
     named = dict(loop.params.named_parameters())
     before = {k: _whole(p).detach().clone() for k, p in named.items()}
-    step = make_train_step(cfg, lr_fn=lambda s: torch.tensor(3e-4))
+    step = make_train_step(cfg, lr_fn=lambda s: torch.tensor(3e-4),
+                           microbatches=microbatches)
     step(loop.params, adamw_init(named), loop._place(next(batches)))
     moved = {k: (_whole(p).detach() - before[k]).numpy()
              for k, p in loop.params.named_parameters()}
     return loss, m, moved
 
 
+def _train_parity(cfg, mesh, microbatches: int = 1) -> dict:
+    loss_p, m_p, moved_p = _train(cfg, None, microbatches)
+    loss_m, m_m, moved_m = _train(cfg, mesh, microbatches)
+    return {"loss_err": abs(loss_m - loss_p),
+            "grad_rel": {k: rel(m_m[k], m_p[k]) for k in m_p},
+            "moved_rel": {k: rel(moved_m[k], moved_p[k]) for k in moved_p},
+            "moved_any": float(max(np.abs(v).max() for v in moved_p.values()))}
+
+
 def parity_rank(rank: int, world: int, tmp: str, archs: list) -> None:
     """Server decode and one train step of every arch on a (2, 2) mesh
-    against the unsharded port."""
+    against the unsharded port; MICROBATCH_ARCH's train steps also in two
+    microbatches, each a row of every "data" shard (``microbatches.json``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs.registry import smoke_config
@@ -92,19 +106,17 @@ def parity_rank(rank: int, world: int, tmp: str, archs: list) -> None:
             clear = (top2[..., 1] - top2[..., 0]) > 1e-5          # [steps, B]
             step_toks = [(np.argmax(lm, -1) == np.argmax(lp, -1)) | ~clear]
             gen_clear = np.concatenate([np.ones((BATCH, 1), bool), clear.T], axis=1)
-            loss_p, m_p, moved_p = _train(cfg, None)
-            loss_m, m_m, moved_m = _train(cfg, mesh)
             out[arch] = {
                 "logits_rel": rel(lm, lp),
                 "tokens_ok": bool(np.all(step_toks)) and bool(np.all((tm == tp) | ~gen_clear)),
-                "loss_err": abs(loss_m - loss_p),
-                "grad_rel": {k: rel(m_m[k], m_p[k]) for k in m_p},
-                "moved_rel": {k: rel(moved_m[k], moved_p[k]) for k in moved_p},
-                "moved_any": float(max(np.abs(v).max() for v in moved_p.values())),
+                **_train_parity(cfg, mesh),
             }
+        micro = _train_parity(smoke_config(MICROBATCH_ARCH), mesh, microbatches=2)
         if rank == 0:
             with open(os.path.join(tmp, "out.json"), "w") as f:
                 json.dump(out, f)
+            with open(os.path.join(tmp, "microbatches.json"), "w") as f:
+                json.dump(micro, f)
     finally:
         dist.destroy_process_group()
 
