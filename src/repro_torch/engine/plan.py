@@ -128,22 +128,15 @@ def bucket_chunks(
 
 @dataclasses.dataclass
 class EngineStats:
-    """Global counters: layout work happens at plan build only, and a
-    ``(backend, bucket)`` is first used once per plan."""
+    """Global counters of plan builds, dispatches and memo hits."""
 
-    layout_builds: int = 0   # CompiledBank / FusedBankStack layout preparations
     plan_builds: int = 0     # ExecutionPlan compilations
-    bank_calls: int = 0      # bank applications (a fused stack counts its banks)
-    jit_traces: int = 0      # first uses of a (backend, bucket) per plan
     jit_calls: int = 0       # plan dispatches
     plan_cache_hits: int = 0  # plan_for() served from the memo
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
             setattr(self, f.name, 0)
-
-    def snapshot(self) -> dict:
-        return dataclasses.asdict(self)
 
 
 STATS = EngineStats()
@@ -164,10 +157,8 @@ class CompiledBank:
             stage_q8(self.layer.group_size, self.features, self.thr, self.lut_q8,
                      self.scales, ks=(self.layer.num_groups,),
                      n_out=self.layer.out_features)
-        STATS.layout_builds += 1
 
     def apply(self, x: torch.Tensor, backend: str) -> torch.Tensor:
-        STATS.bank_calls += 1
         if backend == "gather":
             return apply_gather(self.layer, x)
         if backend == "onehot":
@@ -248,7 +239,6 @@ class FusedBankStack:
         if feats.is_cuda:
             stage_q8(self.v, feats, thr, lut_q8, scales, bias, ks=self.ks,
                      n_out=self.n_out)
-        STATS.layout_builds += 1
 
     def apply(self, x: torch.Tensor, backend: str) -> torch.Tensor:
         if backend not in ("kernel", "kernel_q8"):
@@ -265,7 +255,6 @@ class FusedBankStack:
             y = fuzzy_lut_stack_q8(xg, self.features, self.thr, self.lut_q8,
                                    self.scales, self.bias, ks=self.ks,
                                    n_out=self.n_out)
-        STATS.bank_calls += len(self.banks)
         return y.reshape(*lead, self.n_out)
 
 
@@ -600,7 +589,6 @@ class ExecutionPlan:
     def _note_trace(self, be: str, bucket: int) -> None:
         self._traced.add((be, bucket))
         self._traces += 1
-        STATS.jit_traces += 1
 
     def _state_for(self, device: torch.device):
         """The bank state on ``device``: the plan's own, or a replica built
@@ -722,6 +710,8 @@ class ExecutionPlan:
             "jit_calls": jit_calls,
             "bucket_hits": jit_calls - traces,
             "buckets": buckets,
+            # rows asked for and rows dispatched (the bucket's), per bucket
+            "rows": {f"{be}@{bucket}": rows[(be, bucket)] for be, bucket in sorted(rows)},
             "pad_waste": {
                 f"{be}@{bucket}": _waste(be, req, disp)
                 for (be, bucket), (req, disp) in sorted(rows.items())

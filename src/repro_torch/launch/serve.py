@@ -47,6 +47,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from repro_torch import spans as _spans
 from repro_torch.analysis.sanitizer import ThreadAffinity, make_lock
 from repro_torch.configs.registry import ArchConfig, get_config, smoke_config
 from repro_torch.device import resolve_device
@@ -184,22 +185,40 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _coalesce(requests, device: torch.device | None) -> tuple[list, list[int], int]:
+def _pageable_nbytes(x) -> int:
+    """Bytes of ``x`` held in host memory that is not pinned (a numpy array,
+    or a CPU tensor outside pinned memory); 0 for pinned or device tensors."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu" or x.is_pinned():
+            return 0
+        return x.numel() * x.element_size()
+    return int(np.asarray(x).nbytes)
+
+
+def _coalesce(requests, device: torch.device | None) -> tuple[list, list[int], int, int]:
     """Per-input concatenations on ``device`` (numpy on the host when
-    ``device`` is None) + per-request sizes."""
+    ``device`` is None), per-request sizes, their total, and the bytes
+    copied onto ``device`` from pageable host memory."""
     sizes = [int(np.shape(r[0])[0]) for r in requests]
     if device is None:
         cat = [np.concatenate([_host(r[i]) for r in requests])
                for i in range(len(requests[0]))]
-    else:
-        cat = [torch.cat([torch.as_tensor(r[i], device=device) for r in requests])
-               for i in range(len(requests[0]))]
-    return cat, sizes, sum(sizes)
+        return cat, sizes, sum(sizes), 0
+    cat = [torch.cat([torch.as_tensor(r[i], device=device) for r in requests])
+           for i in range(len(requests[0]))]
+    pageable = sum(_pageable_nbytes(x) for r in requests for x in r)
+    return cat, sizes, sum(sizes), pageable
 
 
-def _split(out: torch.Tensor, sizes: list[int]) -> list[np.ndarray]:
-    """Cut a coalesced output back into per-request numpy arrays."""
+def _split(outs: list[torch.Tensor], sizes: list[int]) -> list[np.ndarray]:
+    """Concatenate a group's chunk outputs, copy them to the host (which
+    waits for the device) and cut them back into per-request arrays."""
+    rec = _spans.RECORDER
+    t = 0.0 if rec is None else time.perf_counter()
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
     host = out.cpu().numpy()
+    if rec is not None:
+        rec.add(_spans.SERVER_COPY_BACK, t, time.perf_counter())
     return np.split(host, np.cumsum(sizes)[:-1], axis=0)
 
 
@@ -351,14 +370,13 @@ class PegasusServer:
             warnings.warn(
                 "PegasusServer.serve(list of arrays) is deprecated; pass a "
                 "list of InferRequest", DeprecationWarning, stacklevel=2)
-        cat, sizes, total = _coalesce([r.inputs for r in reqs], self.plan.device)
+        cat, sizes, total, _ = _coalesce([r.inputs for r in reqs], self.plan.device)
         chunks, start = [], 0
         for size in bucket_chunks(total, self.plan.buckets, self.max_batch):
             chunks.append(self.plan(*(c[start : start + size] for c in cat),
                                     backend=backend, jit=jit))
             start += size
-        out = torch.cat(chunks) if len(chunks) > 1 else chunks[0]
-        split = _split(out, sizes)
+        split = _split(chunks, sizes)
         self.batches_run += len(chunks)
         self.requests_served += len(sizes)
         self.flows_served += total
@@ -431,6 +449,9 @@ class MultiModelServer:
         # readers tolerate a stale tail, so it takes no lock
         self.schedule_log: deque = deque(maxlen=4096)
         self.batches_dispatched = 0                 # guarded-by: _ctr_lock
+        # bytes _coalesce copied to the device from pageable host memory,
+        # committed with the slice's other counters
+        self.h2d_pageable_bytes = 0                 # guarded-by: _ctr_lock
         # bound by the async drain loop (never by the sync server): once
         # bound, all dispatch must happen on that thread
         self._dispatch_affinity = ThreadAffinity("dispatch")
@@ -661,6 +682,9 @@ class MultiModelServer:
         # queue-wait ends when the slice starts dispatching, not at pull
         for r in reqs:
             r.t_dispatch = t0
+        rec = _spans.RECORDER
+        if rec is not None:
+            rec.add_all(_spans.SCHEDULER_QUEUE, [r.t_submit for r in reqs], t0)
         # "managed" = no caller backend override: only managed groups ride
         # the fallback ladder and feed the model's breaker
         g: dict = {"name": name, "reqs": reqs, "t0": t0, "degraded": False,
@@ -698,15 +722,21 @@ class MultiModelServer:
                     if h is not None:
                         h["fallback_batches" if g["degraded"] else "probe_batches"] += 1
             pooled = self._pool is not None
-            cat, sizes, total = _coalesce([r.inputs for r in reqs],
-                                          None if pooled else plan.device)
+            t = 0.0 if rec is None else time.perf_counter()
+            cat, sizes, total, pageable = _coalesce([r.inputs for r in reqs],
+                                                    None if pooled else plan.device)
+            if rec is not None:
+                rec.add(_spans.SERVER_COALESCE, t, time.perf_counter())
             chunks = bucket_chunks(total, plan.buckets, self.max_batch)
             outs, start = [], 0
             for size in chunks:
                 sl = (cat if start == 0 and size == total
                       else [c[start : start + size] for c in cat])
                 if not pooled:
+                    t = 0.0 if rec is None else time.perf_counter()
                     outs.append(plan(*sl, backend=backend))
+                    if rec is not None:
+                        rec.add(_spans.PLAN_CALL, t, time.perf_counter())
                 else:
                     # the chunk runs on the stream with the least pending
                     # work; assert_worker pins "all plan calls run on pool
@@ -724,7 +754,7 @@ class MultiModelServer:
             g["error"] = e
             return g
         g.update(outs=outs, sizes=sizes, total=total, batches=len(chunks),
-                 t_begun=time.perf_counter())
+                 pageable=pageable, t_begun=time.perf_counter())
         return g
 
     def _finish_group(self, g: dict):
@@ -743,8 +773,7 @@ class MultiModelServer:
                     out = np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
                     split = np.split(out, np.cumsum(g["sizes"])[:-1])
                 else:
-                    out = torch.cat(g["outs"]) if len(g["outs"]) > 1 else g["outs"][0]
-                    split = _split(out, g["sizes"])      # device → host: waits
+                    split = _split(g["outs"], g["sizes"])      # device → host: waits
             except Exception as e:
                 err = e
         # a degraded (fallback) slice neither extends nor resets the
@@ -775,10 +804,15 @@ class MultiModelServer:
                 c["requests_served"] += len(reqs)
                 c["batches_run"] += g["batches"]
                 c["flows_served"] += g["total"]
+            self.h2d_pageable_bytes += g["pageable"]
+        rec = _spans.RECORDER
+        t = 0.0 if rec is None else time.perf_counter()
         for r, o in zip(reqs, split):
             if r.future is not None:
                 r.future.queue_wait_ms = (r.t_dispatch - r.t_submit) * 1e3
             _resolve_future(r.future, result=o)
+        if rec is not None:
+            rec.add(_spans.SERVER_RESOLVE, t, time.perf_counter())
         return split
 
     def _retry_or_fail(self, name: str, reqs: list, err: Exception, *,
@@ -922,6 +956,7 @@ class MultiModelServer:
             per_model = {name: {**zeros, **self._counters.get(name, {})}
                          for name in names}
             batches_dispatched = self.batches_dispatched
+            h2d_pageable_bytes = self.h2d_pageable_bytes
             breakers = dict(self._breakers)
             hctrs = {n: dict(c) for n, c in self._health_ctrs.items()}
         health_models: dict = {}
@@ -947,6 +982,7 @@ class MultiModelServer:
                 "batches_run": sum(m["batches_run"] for m in per_model.values()),
                 "flows_served": sum(m["flows_served"] for m in per_model.values()),
                 "batches_dispatched": batches_dispatched,
+                "h2d_pageable_bytes": h2d_pageable_bytes,
                 "models": per_model,
             },
             "engine": {"cache": self.registry.cache_info(), "models": reg},
@@ -1188,12 +1224,18 @@ class AsyncMultiModelServer(MultiModelServer):
                 backoff = frozenset(
                     n for n, t in self._retry_not_before.items() if t > now)
                 groups = self._sched.pull_round(self._quantum(), exclude=backoff)
+                rec = _spans.RECORDER
+                t_pulled = 0.0 if rec is None else time.perf_counter()
                 if not groups:
                     if backoff:
                         time.sleep(0.002)
                     else:
                         self._sched.wait_for_work(self._idle_wait)
+                    if rec is not None:
+                        rec.add(_spans.SERVER_WAIT, t_pulled, time.perf_counter())
                     continue
+                if rec is not None:
+                    rec.add(_spans.SCHEDULER_PULL, now, t_pulled)
                 begun = [self._begin_group(name, reqs, None) for name, reqs in groups]
                 for g in begun:
                     try:
@@ -1204,6 +1246,8 @@ class AsyncMultiModelServer(MultiModelServer):
                         self.loop_errors.append(e)
                         for r in g["reqs"]:
                             _resolve_future(r.future, error=e)
+                if rec is not None:
+                    rec.add(_spans.SERVER_ROUND, now, time.perf_counter())
             except Exception as e:               # pragma: no cover - safety
                 self.loop_errors.append(e)
                 time.sleep(self._idle_wait)

@@ -461,4 +461,14 @@ def test_stats_schema_matches_reference(models, kind):
             want = ref_srv.stats()["engine"]["models"][name]["audit"]
             assert set(counts) == set(want) == {"error", "warning", "info"}, name
             assert counts["error"] == 0, name
-    assert _key_paths(srv.stats()) == _key_paths(ref_srv.stats())
+    st = srv.stats()
+    # beyond the reference's schema the port counts the bytes it copies
+    # from pageable host memory and each plan's rows per bucket, keyed as
+    # pad_waste is
+    plans = ({(): st["engine"]} if kind == "pegasus" else
+             {("models", n): m for n, m in st["engine"]["models"].items()})
+    extra = set() if kind == "pegasus" else {("serving", "h2d_pageable_bytes")}
+    for at, plan_st in plans.items():
+        assert set(plan_st["rows"]) == set(plan_st["pad_waste"])
+        extra |= {("engine", *at, "rows", *k) for k in [()] + [(b,) for b in plan_st["rows"]]}
+    assert _key_paths(st) == _key_paths(ref_srv.stats()) | extra
