@@ -38,6 +38,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import concurrent.futures
+import functools
+import math
 import threading
 import time
 import warnings
@@ -195,19 +197,131 @@ def _pageable_nbytes(x) -> int:
     return int(np.asarray(x).nbytes)
 
 
-def _coalesce(requests, device: torch.device | None) -> tuple[list, list[int], int, int]:
+class _StageSlot:
+    """One slot of a :class:`PinnedStage`: a host byte buffer per input
+    position (and a numpy view of each), and the event recorded after the
+    copies out of them."""
+
+    __slots__ = ("device", "event", "bufs", "arrays", "busy", "pin")
+
+    def __init__(self, device: torch.device, event, pin: bool):
+        self.device, self.event, self.pin = device, event, pin
+        self.bufs: list[torch.Tensor] = []
+        self.arrays: list[np.ndarray] = []
+        self.busy = True
+
+    def _bytes(self, i: int, nbytes: int) -> np.ndarray:
+        """Position ``i``'s buffer, replaced by one twice as large as often
+        as it takes to hold ``nbytes``; its first ``nbytes`` as numpy."""
+        if i == len(self.bufs):
+            self.bufs.append(torch.empty(0, dtype=torch.uint8))
+            self.arrays.append(self.bufs[i].numpy())
+        size = self.bufs[i].numel() or nbytes
+        while size < nbytes:
+            size *= 2
+        if size != self.bufs[i].numel():
+            self.bufs[i] = torch.empty(size, dtype=torch.uint8, pin_memory=self.pin)
+            self.arrays[i] = self.bufs[i].numpy()
+        return self.arrays[i][:nbytes]
+
+    def pack(self, cols: list[list]) -> list[torch.Tensor]:
+        """Pack each input position's per-request host arrays (numpy arrays,
+        CPU tensors or lists) into this slot's buffer for that position, one
+        host copy a request; returns one ``(total, *trailing)`` view a
+        position, in the dtype ``torch.cat`` gives and raising as it does.
+        Numpy requests of one dtype and trailing shape, the usual case, are
+        copied by numpy, which costs less per call than torch."""
+        views = []
+        for i, col in enumerate(cols):
+            first = col[0]
+            if (isinstance(first, np.ndarray) and first.ndim
+                    and all(isinstance(x, np.ndarray) and x.dtype == first.dtype
+                            and x.shape[1:] == first.shape[1:] for x in col)):
+                shape = (sum(len(x) for x in col), *first.shape[1:])
+                out = self._bytes(i, math.prod(shape) * first.itemsize)
+                out = out.view(first.dtype).reshape(shape)
+                views.append(torch.from_numpy(np.concatenate(col, out=out)))
+                continue
+            parts = [torch.as_tensor(x) for x in col]
+            dtype = functools.reduce(torch.promote_types, (p.dtype for p in parts))
+            shape = (sum(p.shape[0] if p.dim() else 1 for p in parts), *parts[0].shape[1:])
+            nbytes = math.prod(shape) * dtype.itemsize
+            self._bytes(i, nbytes)
+            views.append(torch.cat(parts, out=self.bufs[i][:nbytes].view(dtype).view(shape)))
+        return views
+
+
+class PinnedStage:
+    """Page-locked host buffers that a server packs each group's host inputs
+    into, so that every input crosses to the card in one asynchronous copy
+    instead of one blocking pageable copy a request.
+
+    A slot is handed out only once the event recorded after its last copies
+    has completed: each group of a round in flight holds a slot of its own,
+    and a slot still being read by the device is never written. ``pin`` and
+    ``event`` (a factory of objects with ``record(stream)`` and ``query()``)
+    are what tests replace to run it without a card."""
+
+    def __init__(self, *, pin: bool = True, event=None):
+        self._pin = pin
+        self._event = torch.cuda.Event if event is None else event
+        self._slot_lock = make_lock("serve._stage_lock")
+        self._slots: list[_StageSlot] = []           # guarded-by: _slot_lock
+
+    def take(self, device: torch.device) -> _StageSlot:
+        """A free slot for ``device`` whose copies have completed, else a
+        new one; it is the caller's until :meth:`release`."""
+        with self._slot_lock:
+            for s in self._slots:
+                if not s.busy and s.device == device and s.event.query():
+                    s.busy = True
+                    return s
+            s = _StageSlot(device, self._event(), self._pin)
+            self._slots.append(s)
+            return s
+
+    def release(self, slot: _StageSlot, stream) -> None:
+        """Record ``slot``'s event on ``stream``, after the copies out of it
+        that were enqueued there, and hand the slot back."""
+        slot.event.record(stream)
+        with self._slot_lock:
+            slot.busy = False
+
+
+def _coalesce(requests, device: torch.device | None,
+              stage: PinnedStage) -> tuple[list, list[int], int, int, int]:
     """Per-input concatenations on ``device`` (numpy on the host when
     ``device`` is None), per-request sizes, their total, and the bytes
-    copied onto ``device`` from pageable host memory."""
+    copied onto ``device`` from pageable host memory and through ``stage``.
+
+    On a CUDA device, an input that every request holds on the host is
+    packed into a slot of ``stage`` and crosses in one copy that does not
+    block the host; an input some request holds on the card is
+    concatenated there."""
     sizes = [int(np.shape(r[0])[0]) for r in requests]
+    cols = [[r[i] for r in requests] for i in range(len(requests[0]))]
     if device is None:
-        cat = [np.concatenate([_host(r[i]) for r in requests])
-               for i in range(len(requests[0]))]
-        return cat, sizes, sum(sizes), 0
-    cat = [torch.cat([torch.as_tensor(r[i], device=device) for r in requests])
-           for i in range(len(requests[0]))]
-    pageable = sum(_pageable_nbytes(x) for r in requests for x in r)
-    return cat, sizes, sum(sizes), pageable
+        return [np.concatenate([_host(x) for x in col]) for col in cols], sizes, sum(sizes), 0, 0
+    staged = ([i for i, col in enumerate(cols)
+               if all(not isinstance(x, torch.Tensor) or x.device.type == "cpu" for x in col)]
+              if device.type == "cuda" else [])
+    cat = [None] * len(cols)
+    staged_bytes = 0
+    if staged:
+        stream = torch.cuda.current_stream(device)
+        slot = stage.take(device)
+        try:
+            for i, view in zip(staged, slot.pack([cols[i] for i in staged])):
+                cat[i] = view.to(device, non_blocking=True)
+                staged_bytes += view.nbytes
+        finally:
+            stage.release(slot, stream)
+    pageable = 0
+    for i, col in enumerate(cols):
+        if cat[i] is None:
+            cat[i] = torch.cat([torch.as_tensor(x, device=device) for x in col])
+            pageable += sum(_pageable_nbytes(x) for x in col)
+    return cat, sizes, sum(sizes), pageable, staged_bytes
 
 
 def _split(outs: list[torch.Tensor], sizes: list[int]) -> list[np.ndarray]:
@@ -318,6 +432,7 @@ class PegasusServer:
         self.plan_build_ms = (time.perf_counter() - t0) * 1e3
         self.backend = backend
         self.max_batch = max(self.plan.buckets) if max_batch is None else max_batch
+        self._stage = PinnedStage()
         self.requests_served = 0
         self.batches_run = 0
         self.flows_served = 0
@@ -370,7 +485,8 @@ class PegasusServer:
             warnings.warn(
                 "PegasusServer.serve(list of arrays) is deprecated; pass a "
                 "list of InferRequest", DeprecationWarning, stacklevel=2)
-        cat, sizes, total, _ = _coalesce([r.inputs for r in reqs], self.plan.device)
+        cat, sizes, total, _, _ = _coalesce([r.inputs for r in reqs], self.plan.device,
+                                            self._stage)
         chunks, start = [], 0
         for size in bucket_chunks(total, self.plan.buckets, self.max_batch):
             chunks.append(self.plan(*(c[start : start + size] for c in cat),
@@ -452,6 +568,9 @@ class MultiModelServer:
         # bytes _coalesce copied to the device from pageable host memory,
         # committed with the slice's other counters
         self.h2d_pageable_bytes = 0                 # guarded-by: _ctr_lock
+        # bytes it copied through the pinned stage instead
+        self.h2d_staged_bytes = 0                   # guarded-by: _ctr_lock
+        self._stage = PinnedStage()
         # bound by the async drain loop (never by the sync server): once
         # bound, all dispatch must happen on that thread
         self._dispatch_affinity = ThreadAffinity("dispatch")
@@ -723,8 +842,8 @@ class MultiModelServer:
                         h["fallback_batches" if g["degraded"] else "probe_batches"] += 1
             pooled = self._pool is not None
             t = 0.0 if rec is None else time.perf_counter()
-            cat, sizes, total, pageable = _coalesce([r.inputs for r in reqs],
-                                                    None if pooled else plan.device)
+            cat, sizes, total, pageable, staged = _coalesce(
+                [r.inputs for r in reqs], None if pooled else plan.device, self._stage)
             if rec is not None:
                 rec.add(_spans.SERVER_COALESCE, t, time.perf_counter())
             chunks = bucket_chunks(total, plan.buckets, self.max_batch)
@@ -754,7 +873,7 @@ class MultiModelServer:
             g["error"] = e
             return g
         g.update(outs=outs, sizes=sizes, total=total, batches=len(chunks),
-                 pageable=pageable, t_begun=time.perf_counter())
+                 pageable=pageable, staged=staged, t_begun=time.perf_counter())
         return g
 
     def _finish_group(self, g: dict):
@@ -805,6 +924,7 @@ class MultiModelServer:
                 c["batches_run"] += g["batches"]
                 c["flows_served"] += g["total"]
             self.h2d_pageable_bytes += g["pageable"]
+            self.h2d_staged_bytes += g["staged"]
         rec = _spans.RECORDER
         t = 0.0 if rec is None else time.perf_counter()
         for r, o in zip(reqs, split):
@@ -957,6 +1077,7 @@ class MultiModelServer:
                          for name in names}
             batches_dispatched = self.batches_dispatched
             h2d_pageable_bytes = self.h2d_pageable_bytes
+            h2d_staged_bytes = self.h2d_staged_bytes
             breakers = dict(self._breakers)
             hctrs = {n: dict(c) for n, c in self._health_ctrs.items()}
         health_models: dict = {}
@@ -983,6 +1104,7 @@ class MultiModelServer:
                 "flows_served": sum(m["flows_served"] for m in per_model.values()),
                 "batches_dispatched": batches_dispatched,
                 "h2d_pageable_bytes": h2d_pageable_bytes,
+                "h2d_staged_bytes": h2d_staged_bytes,
                 "models": per_model,
             },
             "engine": {"cache": self.registry.cache_info(), "models": reg},

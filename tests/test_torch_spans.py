@@ -275,7 +275,9 @@ def test_graph_replays_on_the_card_record_as_on_the_cpu(mlp):
     assert len(outs) == len(reqs)
     calls = recs.of("plan.call")
     assert len(calls) == s1["batches_dispatched"] - s0["batches_dispatched"] > 0
-    assert s1["h2d_pageable_bytes"] - s0["h2d_pageable_bytes"] == sum(r.nbytes for r in reqs)
+    # host requests cross through the pinned stage: none of it is pageable
+    assert s1["h2d_pageable_bytes"] - s0["h2d_pageable_bytes"] == 0
+    assert s1["h2d_staged_bytes"] - s0["h2d_staged_bytes"] == sum(r.nbytes for r in reqs)
     for kids in (calls, recs.of("server.copy_back")):
         p = recs.parent[kids]
         assert (recs.name[p] == spans.SERVER_ROUND).all()
