@@ -379,16 +379,18 @@ class _GraphPool:
 class _Graph:
     """One captured forward at a ``(backend, bucket)`` on one device and
     stream: the graph, its plan-owned static input and output buffers, the
-    kernel launches one replay makes, and the pool it allocated from."""
+    port's kernel launches one replay makes, the kernel nodes it holds (the
+    port's and torch's), and the pool it allocated from."""
 
-    __slots__ = ("graph", "inputs", "output", "launches", "pool")
+    __slots__ = ("graph", "inputs", "output", "launches", "kernels", "pool")
 
     def __init__(self, graph, inputs: tuple, output: torch.Tensor,
-                 launches: dict[str, int], pool: _GraphPool):
+                 launches: dict[str, int], kernels: int, pool: _GraphPool):
         self.graph = graph
         self.inputs = inputs
         self.output = output
         self.launches = launches
+        self.kernels = kernels
         self.pool = pool
 
 
@@ -412,11 +414,12 @@ class ExecutionPlan:
     Graphs of one device and stream share one memory pool, and a replay
     holds that pool's lock from its copy-in until its output copy is
     enqueued; each graph's kernel launches, tallied at capture, are added
-    to the launch counters at every replay. A failed capture raises; it
-    never becomes an eager run. ``jit=False`` runs the forward eagerly on
-    the unpadded inputs (the reference's keyword for its eager path), and
-    on the CPU every call runs eagerly with the same trace and bucket
-    counters.
+    to the launch counters at every replay, and the kernel nodes it holds,
+    counted once at capture, to :attr:`graph_kernels`. A failed capture
+    raises; it never becomes an eager run. ``jit=False`` runs the forward
+    eagerly on the unpadded inputs (the reference's keyword for its eager
+    path), and on the CPU every call runs eagerly with the same trace and
+    bucket counters.
 
     **Placed calls.** ``device=`` runs one call on another device with a
     replica of the bank state built once per device (outside the replica
@@ -470,6 +473,8 @@ class ExecutionPlan:
         self._rows: dict[tuple[str, int], list] = {}        # guarded-by: _lock
         self._calls = 0                                     # guarded-by: _lock
         self._graphs: dict[tuple, _Graph] = {}              # guarded-by: _lock
+        # kernel nodes of every graph replayed, each replay counted
+        self._graph_kernels = 0                             # guarded-by: _lock
         # per (device, stream): the graphs' memory pool and replay lock
         # (touched under _CAPTURE_LOCK only)
         self._pools: dict[tuple, _GraphPool] = {}
@@ -511,6 +516,15 @@ class ExecutionPlan:
     def compiled_buckets(self) -> set:
         with self._lock:
             return set(self._traced)
+
+    @property
+    def graph_kernels(self) -> int:
+        """Kernels the plan's graph replays have launched: the kernel nodes
+        of each graph replayed (the port's own kernels and the torch ops
+        captured between them), once per replay. Eager calls, the CPU and
+        a call that captures count nothing."""
+        with self._lock:
+            return self._graph_kernels
 
     def _padded(self, x, bucket: int, device: torch.device) -> torch.Tensor:
         x = torch.as_tensor(x, device=device)
@@ -619,12 +633,15 @@ class ExecutionPlan:
                tuple((tuple(x.shape[1:]), x.dtype) for x in srcs))
         with self._lock:
             g = self._graphs.get(key)
+            if g is not None:
+                self._graph_kernels += g.kernels
         if g is None:
             y = self._capture(key, be, bucket, b, dev, state, srcs, stream, count)
             if y is not None:
                 return y
             with self._lock:         # a racing call captured it first
                 g = self._graphs[key]
+                self._graph_kernels += g.kernels
         with g.pool.lock:
             for buf, x in zip(g.inputs, srcs):
                 buf[:b].copy_(x)
@@ -638,8 +655,9 @@ class ExecutionPlan:
     def _capture(self, key, be, bucket, b, dev, state, srcs, stream, count: bool = True):
         """First call at ``key``: fill new static inputs, run the forward
         once eagerly on the capture stream (its output answers this call),
-        then capture it into a graph. Returns None when a racing call
-        captured ``key`` first."""
+        then capture it into a graph and count its kernel nodes before
+        instantiating it. Returns None when a racing call captured ``key``
+        first."""
         apply = lambda step, x: step.apply(x, be)
         with _CAPTURE_LOCK, torch.cuda.device(dev):
             with self._lock:
@@ -659,13 +677,15 @@ class ExecutionPlan:
             side.wait_stream(stream)
             with torch.cuda.stream(side), torch.no_grad():
                 warm = self._forward(apply, state, *static)
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             with _lib.recording() as tally, torch.no_grad():
                 with torch.cuda.graph(graph, pool=pool.handle, stream=side,
                                       capture_error_mode="thread_local"):
                     out = self._forward(apply, state, *static)
+            kernels = _lib.graph_kernel_nodes(graph.raw_cuda_graph())
+            graph.instantiate()
             with self._lock:
-                self._graphs[key] = _Graph(graph, static, out, dict(tally), pool)
+                self._graphs[key] = _Graph(graph, static, out, dict(tally), kernels, pool)
                 if count:
                     self._note_trace(be, bucket)
         stream.wait_stream(side)

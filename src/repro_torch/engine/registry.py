@@ -283,6 +283,14 @@ class PlanRegistry:
         self._fire(name, backend)
         return self.plan_for(model, backend=backend, **build_kw)
 
+    def plans(self) -> list[ExecutionPlan]:
+        """Every plan the registry holds, named or memoized (a fallback
+        backend's too), each once."""
+        with self._lock:
+            held = [ent["entry"].plan for ent in self._named.values()]
+            held += [ent.plan for ent in self._memo.values()]
+        return list({id(plan): plan for plan in held}.values())
+
     def backend_of(self, name: str) -> str:
         """The registered (preferred) backend serving ``name``."""
         with self._lock:

@@ -14,6 +14,8 @@ show that it went through the kernels. A wrapper called while a CUDA graph
 is captured launches nothing: under :func:`recording` its counts go to the
 capture's tally instead, and each replay of the graph adds that tally
 (:func:`add_launches`), so the counts keep meaning launches executed.
+:func:`graph_kernel_nodes` counts every kernel a captured graph holds, the
+port's own and torch's alike, through the CUDA driver.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["F32Geom", "LAUNCHES", "MAX_L", "Q8Geom", "add_launches", "build_all",
-           "build_log", "check_status", "count_launch", "library", "recording",
-           "reset_launches"]
+           "build_log", "check_status", "count_launch", "graph_kernel_nodes", "library",
+           "recording", "reset_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
@@ -202,6 +204,51 @@ def library(fn_name: str):
                     getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
     return getattr(lib, fn_name)
+
+
+# CUgraphNodeType (cuda.h): a kernel node; copies (1), memsets (2) and the
+# other kinds are not kernels the graph launches
+_KERNEL_NODE = 0
+
+
+def _driver() -> ctypes.CDLL:
+    """The CUDA driver library, which a process that uses CUDA has loaded."""
+    with _LOCK:
+        drv = _LIBS.get("driver")
+        if drv is None:
+            drv = ctypes.CDLL("libcuda.so.1")
+            drv.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                                            ctypes.POINTER(ctypes.c_size_t)]
+            drv.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+            for fn in (drv.cuGraphGetNodes, drv.cuGraphNodeGetType):
+                fn.restype = ctypes.c_int
+            _LIBS["driver"] = drv
+    return drv
+
+
+def graph_kernel_nodes(raw_graph: int) -> int:
+    """Kernel nodes of a captured CUDA graph (``raw_graph``: the
+    ``cudaGraph_t`` of ``torch.cuda.CUDAGraph(keep_graph=True)
+    .raw_cuda_graph()``, before or after ``instantiate``): the kernels one
+    replay launches, the port's and torch's alike. Copy and memset nodes
+    are not counted."""
+    drv = _driver()
+
+    def call(fn, *args):
+        status = fn(*args)
+        if status != 0:
+            raise RuntimeError(f"{fn.__name__} failed with CUDA driver error {status}")
+
+    n = ctypes.c_size_t(0)
+    call(drv.cuGraphGetNodes, raw_graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(drv.cuGraphGetNodes, raw_graph, nodes, ctypes.byref(n))
+    kind = ctypes.c_int()
+    kernels = 0
+    for node in nodes[:n.value]:
+        call(drv.cuGraphNodeGetType, node, ctypes.byref(kind))
+        kernels += kind.value == _KERNEL_NODE
+    return kernels
 
 
 def check_status(status: int, fn_name: str) -> None:

@@ -1069,9 +1069,10 @@ class MultiModelServer:
         and retry counters, degraded models, the chaos injector)."""
         reg = self.registry.stats()
         zeros = {"requests_served": 0, "batches_run": 0, "flows_served": 0}
-        # registry names BEFORE the counter lock: registry._lock ranks
-        # outside serve._ctr_lock
+        # registry names and plans BEFORE the counter lock: registry._lock
+        # ranks outside serve._ctr_lock
         names = self.models()
+        graph_kernels = sum(plan.graph_kernels for plan in self.registry.plans())
         with self._ctr_lock:
             per_model = {name: {**zeros, **self._counters.get(name, {})}
                          for name in names}
@@ -1105,6 +1106,7 @@ class MultiModelServer:
                 "batches_dispatched": batches_dispatched,
                 "h2d_pageable_bytes": h2d_pageable_bytes,
                 "h2d_staged_bytes": h2d_staged_bytes,
+                "graph_kernels": graph_kernels,
                 "models": per_model,
             },
             "engine": {"cache": self.registry.cache_info(), "models": reg},
