@@ -200,15 +200,18 @@ def _pageable_nbytes(x) -> int:
 class _StageSlot:
     """One slot of a :class:`PinnedStage`: a host byte buffer per input
     position (and a numpy view of each), and the event recorded after the
-    copies out of them."""
+    copies out of them; in a stage that brings outputs back, one buffer
+    and the event recorded after the copy into it."""
 
-    __slots__ = ("device", "event", "bufs", "arrays", "busy", "pin")
+    __slots__ = ("device", "event", "bufs", "arrays", "busy", "pin", "typed", "layout")
 
     def __init__(self, device: torch.device, event, pin: bool):
         self.device, self.event, self.pin = device, event, pin
         self.bufs: list[torch.Tensor] = []
         self.arrays: list[np.ndarray] = []
         self.busy = True
+        self.typed: tuple = ()         # the first buffer as rows: (torch, numpy)
+        self.layout: tuple | None = None
 
     def _bytes(self, i: int, nbytes: int) -> np.ndarray:
         """Position ``i``'s buffer, replaced by one twice as large as often
@@ -223,6 +226,19 @@ class _StageSlot:
             self.bufs[i] = torch.empty(size, dtype=torch.uint8, pin_memory=self.pin)
             self.arrays[i] = self.bufs[i].numpy()
         return self.arrays[i][:nbytes]
+
+    def rows(self, dtype: torch.dtype, trailing: torch.Size, n: int) -> torch.Tensor:
+        """``n`` rows of ``dtype`` and shape ``trailing`` at the start of
+        the first buffer, grown to hold them. The whole buffer's typed view
+        is kept while it fits, so that a round costs one slice here. A slot
+        serves either :meth:`pack` or this."""
+        if self.layout != (dtype, trailing) or len(self.typed[0]) < n:
+            row = math.prod(trailing) * dtype.itemsize
+            self._bytes(0, n * row)
+            cap = self.bufs[0].numel() // row
+            t = self.bufs[0][:cap * row].view(dtype).view(cap, *trailing)
+            self.typed, self.layout = (t, t.numpy()), (dtype, trailing)
+        return self.typed[0][:n]
 
     def pack(self, cols: list[list]) -> list[torch.Tensor]:
         """Pack each input position's per-request host arrays (numpy arrays,
@@ -258,9 +274,12 @@ class PinnedStage:
 
     A slot is handed out only once the event recorded after its last copies
     has completed: each group of a round in flight holds a slot of its own,
-    and a slot still being read by the device is never written. ``pin`` and
-    ``event`` (a factory of objects with ``record(stream)`` and ``query()``)
-    are what tests replace to run it without a card."""
+    and a slot still being read by the device is never written. A second
+    stage brings each group's outputs back (:meth:`copy_back`): there a
+    slot is handed back only once the host has taken the outputs out.
+    ``pin`` and ``event`` (a factory of objects with ``record(stream)``,
+    ``query()`` and ``synchronize()``) are what tests replace to run it
+    without a card."""
 
     def __init__(self, *, pin: bool = True, event=None):
         self._pin = pin
@@ -284,8 +303,50 @@ class PinnedStage:
         """Record ``slot``'s event on ``stream``, after the copies out of it
         that were enqueued there, and hand the slot back."""
         slot.event.record(stream)
+        self._hand_back(slot)
+
+    def _hand_back(self, slot: _StageSlot) -> None:
         with self._slot_lock:
             slot.busy = False
+
+    def copy_back(self, out: torch.Tensor, stream) -> "_CopyBack":
+        """Enqueue on ``stream`` one copy of ``out`` (a group's outputs on
+        the device) into a slot, which does not block the host, and record
+        the slot's event after it. The slot is the returned handle's until
+        the host has taken the outputs out."""
+        slot = self.take(out.device)
+        try:
+            slot.rows(out.dtype, out.shape[1:], len(out)).copy_(out, non_blocking=True)
+            slot.event.record(stream)
+        except Exception:
+            self._hand_back(slot)
+            raise
+        return _CopyBack(self, slot, len(out))
+
+
+class _CopyBack:
+    """A group's outputs on their way into a slot of a :class:`PinnedStage`,
+    with the event recorded after the copy."""
+
+    __slots__ = ("stage", "slot", "rows")
+
+    def __init__(self, stage: PinnedStage, slot: _StageSlot, rows: int):
+        self.stage, self.slot, self.rows = stage, slot, rows
+
+    def result(self) -> np.ndarray:
+        """Wait on the copy's event alone, never on the stream, which may
+        hold later rounds' work; copy the outputs out of the slot and hand
+        it back, so that no result aliases memory a later copy writes."""
+        try:
+            self.slot.event.synchronize()
+            return self.slot.typed[1][:self.rows].copy()
+        finally:
+            self.drop()
+
+    def drop(self) -> None:
+        """Hand the slot back unread: it is taken again only once its
+        event has completed."""
+        self.stage._hand_back(self.slot)
 
 
 def _coalesce(requests, device: torch.device | None,
@@ -324,16 +385,41 @@ def _coalesce(requests, device: torch.device | None,
     return cat, sizes, sum(sizes), pageable, staged_bytes
 
 
-def _split(outs: list[torch.Tensor], sizes: list[int]) -> list[np.ndarray]:
-    """Concatenate a group's chunk outputs, copy them to the host (which
-    waits for the device) and cut them back into per-request arrays."""
+def _landed(g: dict) -> bool:
+    """Whether a begun group has nothing left on the device: its copy
+    back's event has completed (a query, no wait), its pool futures are
+    done, or its outputs were never the device's."""
+    out = g.get("outs")
+    if isinstance(out, _CopyBack):
+        return out.slot.event.query()
+    if isinstance(out, list):
+        return all(f.done() for f in out)
+    return True
+
+
+def _copy_back(outs: list[torch.Tensor], stage: PinnedStage):
+    """Concatenate a group's chunk outputs and, on a CUDA device, enqueue
+    their copy into a slot of ``stage`` behind the group's plan calls;
+    returns the copy's handle, or off the card the concatenation."""
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    if out.device.type != "cuda":
+        return out
+    return stage.copy_back(out, torch.cuda.current_stream(out.device))
+
+
+def _split(back, sizes: list[int]) -> list[np.ndarray]:
+    """What :func:`_copy_back` returned, on the host (a copy into a slot is
+    waited for on its event alone) and cut back into per-request arrays."""
     rec = _spans.RECORDER
     t = 0.0 if rec is None else time.perf_counter()
-    out = torch.cat(outs) if len(outs) > 1 else outs[0]
-    host = out.cpu().numpy()
+    host = back.result() if isinstance(back, _CopyBack) else back.cpu().numpy()
     if rec is not None:
         rec.add(_spans.SERVER_COPY_BACK, t, time.perf_counter())
-    return np.split(host, np.cumsum(sizes)[:-1], axis=0)
+    split, at = [], 0
+    for n in sizes:
+        split.append(host[at:at + n])
+        at += n
+    return split
 
 
 def make_serve_step(cfg: ArchConfig):
@@ -433,6 +519,7 @@ class PegasusServer:
         self.backend = backend
         self.max_batch = max(self.plan.buckets) if max_batch is None else max_batch
         self._stage = PinnedStage()
+        self._back = PinnedStage()
         self.requests_served = 0
         self.batches_run = 0
         self.flows_served = 0
@@ -492,7 +579,7 @@ class PegasusServer:
             chunks.append(self.plan(*(c[start : start + size] for c in cat),
                                     backend=backend, jit=jit))
             start += size
-        split = _split(chunks, sizes)
+        split = _split(_copy_back(chunks, self._back), sizes)
         self.batches_run += len(chunks)
         self.requests_served += len(sizes)
         self.flows_served += total
@@ -570,7 +657,13 @@ class MultiModelServer:
         self.h2d_pageable_bytes = 0                 # guarded-by: _ctr_lock
         # bytes it copied through the pinned stage instead
         self.h2d_staged_bytes = 0                   # guarded-by: _ctr_lock
+        # rounds finished, and of them those finished after the next round
+        # had been begun (the async loop's overlap; drain() overlaps none)
+        self.rounds = 0                             # guarded-by: _ctr_lock
+        self.rounds_overlapped = 0                  # guarded-by: _ctr_lock
         self._stage = PinnedStage()
+        # pinned slots the outputs of each group in flight come back into
+        self._back = PinnedStage()
         # bound by the async drain loop (never by the sync server): once
         # bound, all dispatch must happen on that thread
         self._dispatch_affinity = ThreadAffinity("dispatch")
@@ -788,12 +881,15 @@ class MultiModelServer:
 
     def _begin_group(self, name: str, reqs: list, backend: str | None) -> dict:
         """Phase 1 of serving one pulled slice: coalesce → bucket_chunks
-        micro-batches → plan calls. Kernel launches and graph replays are
+        micro-batches → plan calls → the outputs' copy back. Kernel
+        launches, graph replays and the copy into a pinned slot are
         asynchronous, so this returns once every chunk is enqueued on the
         device: the caller begins every group of a round before finishing
-        any. With a stream pool each chunk is handed, as host arrays, to
-        the least-loaded stream and ``outs`` holds the pool's futures of
-        numpy outputs. A dispatch failure rides in the ``"error"`` key."""
+        any, and the async loop the next round's before finishing this one.
+        ``outs`` holds what :func:`_copy_back` returned; with a stream pool
+        each chunk is handed, as host arrays, to the least-loaded stream
+        and ``outs`` holds the pool's futures of numpy outputs. A dispatch
+        failure rides in the ``"error"`` key."""
         # sanitizer checkpoint: once the async loop binds the dispatch
         # affinity, any other thread dispatching is a second dispatcher
         self._dispatch_affinity.assert_here()
@@ -869,6 +965,8 @@ class MultiModelServer:
                 with self._ctr_lock:
                     self.batches_dispatched += 1
                 start += size
+            if not pooled:
+                outs = _copy_back(outs, self._back)
         except Exception as e:
             g["error"] = e
             return g
@@ -876,13 +974,23 @@ class MultiModelServer:
                  pageable=pageable, staged=staged, t_begun=time.perf_counter())
         return g
 
-    def _finish_group(self, g: dict):
+    def _finish_group(self, g: dict, behind: dict | None = None):
         """Phase 2: wait for the group's outputs, split them per request,
         commit counters, record latency and resolve futures. On failure the
         model's breaker records it (preferred path only) and the slice goes
         through :meth:`_retry_or_fail`. Returns the per-request numpy
-        outputs, or None on failure."""
+        outputs, or None on failure.
+
+        ``behind`` is the model's group in the round already begun behind
+        this one, if any. Should this group fail, that one is voided: its
+        requests go back behind this slice's survivors, and its own finish
+        drops its outputs and touches nothing else, so that one model's
+        futures resolve in order and its breaker sees what it saw before."""
         name, reqs = g["name"], g["reqs"]
+        if g.get("void"):
+            if "error" not in g and isinstance(g["outs"], _CopyBack):
+                g["outs"].drop()
+            return None
         err = g.get("error")
         if err is None:
             t_finish = time.perf_counter()
@@ -892,7 +1000,7 @@ class MultiModelServer:
                     out = np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
                     split = np.split(out, np.cumsum(g["sizes"])[:-1])
                 else:
-                    split = _split(g["outs"], g["sizes"])      # device → host: waits
+                    split = _split(g["outs"], g["sizes"])      # waits on the copy alone
             except Exception as e:
                 err = e
         # a degraded (fallback) slice neither extends nor resets the
@@ -901,6 +1009,9 @@ class MultiModelServer:
               if g.get("managed", True) and not g.get("degraded") else None)
         if err is not None:
             self.last_drain_errors[name] = err
+            if behind is not None:
+                behind["void"] = True
+                self._sched.requeue_front(name, behind["reqs"])
             if br is not None:
                 br.record_failure()
                 if not isinstance(err, InjectedFaultError):
@@ -1005,6 +1116,8 @@ class MultiModelServer:
                     failed.add(g["name"])
                 else:
                     results.setdefault(g["name"], []).extend(outs)
+            with self._ctr_lock:
+                self.rounds += 1
         self.last_shed = {name: len(reqs)
                           for name, reqs in self._sched.take_shed().items()}
         if self.last_drain_errors and not results:
@@ -1079,6 +1192,7 @@ class MultiModelServer:
             batches_dispatched = self.batches_dispatched
             h2d_pageable_bytes = self.h2d_pageable_bytes
             h2d_staged_bytes = self.h2d_staged_bytes
+            rounds, rounds_overlapped = self.rounds, self.rounds_overlapped
             breakers = dict(self._breakers)
             hctrs = {n: dict(c) for n, c in self._health_ctrs.items()}
         health_models: dict = {}
@@ -1107,6 +1221,8 @@ class MultiModelServer:
                 "h2d_pageable_bytes": h2d_pageable_bytes,
                 "h2d_staged_bytes": h2d_staged_bytes,
                 "graph_kernels": graph_kernels,
+                "rounds": rounds,
+                "rounds_overlapped": rounds_overlapped,
                 "models": per_model,
             },
             "engine": {"cache": self.registry.cache_info(), "models": reg},
@@ -1145,8 +1261,11 @@ class AsyncMultiModelServer(MultiModelServer):
     Queues are bounded (``queue_depth``, default 1024 requests per model)
     with ``policy`` backpressure: ``"block"`` parks the submitter until the
     loop frees space, ``"reject"`` raises :class:`QueueFullError` at once.
-    The loop pulls one WFQ round at a time and funnels every plan call
-    through its thread (or, with ``devices=``, the stream pool's workers).
+    The loop pulls one WFQ round at a time, begins it before finishing the
+    round before it (one round in flight at most beyond the one being
+    finished; ``stats()["serving"]`` counts ``rounds`` and
+    ``rounds_overlapped``), and funnels every plan call through its thread
+    (or, with ``devices=``, the stream pool's workers).
     Use it as a context manager, or ``start()``/``stop()``::
 
         with AsyncMultiModelServer({"ids": banks}, backend="kernel") as srv:
@@ -1179,8 +1298,9 @@ class AsyncMultiModelServer(MultiModelServer):
 
     def stop(self, *, drain: bool = True, timeout: float | None = None) -> None:
         """Stop the loop. ``drain=True`` first waits for every queue to
-        empty, so in-flight futures all resolve; ``drain=False`` halts after
-        the current round and fails every still-pending future with
+        empty, so in-flight futures all resolve; ``drain=False`` halts once
+        the round in flight is finished and fails every still-pending
+        future with
         :class:`ServerStoppedError`. ``timeout`` bounds drain-wait + join in
         seconds; on expiry the loop may still be alive (``running`` stays
         true) and a later ``stop()`` can finish the job."""
@@ -1341,40 +1461,82 @@ class AsyncMultiModelServer(MultiModelServer):
             self._dispatch_affinity.release()
 
     def _serve_loop_body(self) -> None:
-        while not self._stop_flag.is_set():
-            try:
-                # models inside their retry backoff wait out the pause
-                now = time.perf_counter()
-                backoff = frozenset(
-                    n for n, t in self._retry_not_before.items() if t > now)
-                groups = self._sched.pull_round(self._quantum(), exclude=backoff)
-                rec = _spans.RECORDER
-                t_pulled = 0.0 if rec is None else time.perf_counter()
-                if not groups:
-                    if backoff:
-                        time.sleep(0.002)
-                    else:
-                        self._sched.wait_for_work(self._idle_wait)
+        """Rounds two deep: each iteration pulls round N + 1 (without
+        waiting while round N is in flight), begins its groups, whose work
+        the device queues behind round N's, then finishes round N. A round
+        whose outputs have already landed has nothing left to hide and is
+        finished before the pull, so that the requests its futures'
+        callbacks send can join round N + 1. With nothing to pull the loop
+        finishes round N at once, and it parks only when no round is in
+        flight. A round with a failed begin, a breaker probe or a degraded
+        group is finished before the next pull, as without the overlap."""
+        ahead: list = []            # the round begun and not yet finished
+        try:
+            while not self._stop_flag.is_set():
+                try:
+                    now = time.perf_counter()
+                    landed = bool(ahead) and all(_landed(g) for g in ahead)
+                    if landed:
+                        done, ahead = ahead, []
+                        self._finish_round(done)
+                    # models inside their retry backoff wait out the pause
+                    t_pull = time.perf_counter()
+                    backoff = frozenset(
+                        n for n, t in self._retry_not_before.items() if t > t_pull)
+                    groups = self._sched.pull_round(self._quantum(), exclude=backoff)
+                    rec = _spans.RECORDER
+                    t_pulled = 0.0 if rec is None else time.perf_counter()
+                    if not groups and not ahead and not landed:
+                        if backoff:
+                            time.sleep(0.002)
+                        else:
+                            self._sched.wait_for_work(self._idle_wait)
+                        if rec is not None:
+                            rec.add(_spans.SERVER_WAIT, t_pulled, time.perf_counter())
+                        continue
                     if rec is not None:
-                        rec.add(_spans.SERVER_WAIT, t_pulled, time.perf_counter())
-                    continue
+                        rec.add(_spans.SCHEDULER_PULL, t_pull, t_pulled)
+                    done, ahead = ahead, [self._begin_group(name, reqs, None)
+                                          for name, reqs in groups]
+                    if done:
+                        self._finish_round(done, after=ahead)
+                    # a model whose breaker is not closed gets no group
+                    # begun behind one of its own: a probe voided behind a
+                    # failed finish would hold its slot for good
+                    if any("error" in g or g["probe"] or g["degraded"] for g in ahead):
+                        done, ahead = ahead, []
+                        self._finish_round(done)
+                    if rec is not None:
+                        rec.add(_spans.SERVER_ROUND, now, time.perf_counter())
+                except Exception as e:           # pragma: no cover - safety
+                    self.loop_errors.append(e)
+                    time.sleep(self._idle_wait)
+        finally:
+            # stopping: the round in flight is finished, never stranded
+            if ahead:
+                rec = _spans.RECORDER
+                t = 0.0 if rec is None else time.perf_counter()
+                self._finish_round(ahead)
                 if rec is not None:
-                    rec.add(_spans.SCHEDULER_PULL, now, t_pulled)
-                begun = [self._begin_group(name, reqs, None) for name, reqs in groups]
-                for g in begun:
-                    try:
-                        self._finish_group(g)
-                    except Exception as e:
-                        # _finish_group routes dispatch errors onto futures;
-                        # anything escaping it would strand this group's
-                        self.loop_errors.append(e)
-                        for r in g["reqs"]:
-                            _resolve_future(r.future, error=e)
-                if rec is not None:
-                    rec.add(_spans.SERVER_ROUND, now, time.perf_counter())
-            except Exception as e:               # pragma: no cover - safety
+                    rec.add(_spans.SERVER_ROUND, t, time.perf_counter())
+
+    def _finish_round(self, groups: list, after: list = ()) -> None:
+        """Finish a begun round's groups in order and count the round;
+        ``after`` is the round already begun behind it (see
+        :meth:`_finish_group`'s ``behind``)."""
+        for g in groups:
+            try:
+                self._finish_group(
+                    g, behind=next((h for h in after if h["name"] == g["name"]), None))
+            except Exception as e:
+                # _finish_group routes dispatch errors onto futures;
+                # anything escaping it would strand this group's
                 self.loop_errors.append(e)
-                time.sleep(self._idle_wait)
+                for r in g["reqs"]:
+                    _resolve_future(r.future, error=e)
+        with self._ctr_lock:
+            self.rounds += 1
+            self.rounds_overlapped += bool(after)
 
 
 def _pegasus_demo(args) -> None:

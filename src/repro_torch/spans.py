@@ -29,15 +29,18 @@ The names, by layer (``layer.step``); what a round spends outside them is
 the server's own bookkeeping (chunking, counters, the split per request):
 
 =====================  ====================================================
-``server.round``       one WFQ round of the async drain loop that pulled
-                       work, from before the pull to after the last resolve
+``server.round``       one iteration of the async drain loop that pulled
+                       work or finished a round: round N's finish if its
+                       outputs had landed, the pull of round N + 1 and
+                       its begin, else then round N's finish
 ``server.wait``        the drain thread parked for work or in a retry backoff
 ``scheduler.pull``     ``WFQScheduler.pull_round``
 ``scheduler.queue``    one per request, from its submit to its dispatch
 ``server.coalesce``    the requests copied to the device and concatenated
 ``plan.call``          one plan call per chunk (copy-in, graph replay, clone)
-``server.copy_back``   the outputs concatenated and copied to the host
-                       (the host waits for the device here)
+``server.copy_back``   the wait for a group's outputs on the host (on the
+                       card: on the event after their copy into a pinned
+                       slot alone) and their copy out of the slot
 ``server.resolve``     the futures resolved, their callbacks included
 =====================  ====================================================
 
