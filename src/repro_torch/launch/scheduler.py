@@ -155,16 +155,19 @@ class _Request:
     """One queued request: the input tuple plus its lifecycle stamps.
     ``deadline_ms`` is the completion budget in milliseconds from submit
     (None = no deadline: never shed, never admission-checked); ``rank``
-    is the per-request urgency (:data:`PRIORITY_RANK`)."""
+    is the per-request urgency (:data:`PRIORITY_RANK`); ``typed``: the
+    future takes the request's ``InferResult``, not its raw output."""
 
-    __slots__ = ("inputs", "size", "future", "deadline_ms",
+    __slots__ = ("inputs", "size", "future", "typed", "deadline_ms",
                  "t_submit", "t_dispatch", "rank", "requeues")
 
     def __init__(self, inputs: tuple, size: int, future: Future | None,
-                 deadline_ms: float | None = None, rank: int = 1):
+                 deadline_ms: float | None = None, rank: int = 1,
+                 typed: bool = False):
         self.inputs = inputs
         self.size = size
         self.future = future
+        self.typed = typed
         self.deadline_ms = deadline_ms
         self.t_submit = time.perf_counter()
         self.t_dispatch = 0.0
@@ -349,7 +352,7 @@ class WFQScheduler:
                future: Future | None = None,
                timeout: float | None = None,
                deadline_ms: float | None = None,
-               priority: str = "normal") -> int:
+               priority: str = "normal", typed: bool = False) -> int:
         """Enqueue one request; returns its queue position at insert time.
 
         ``size`` is the request's flow count (its leading batch dim — the
@@ -360,7 +363,8 @@ class WFQScheduler:
         every queued ``normal``/``low`` entry (FIFO among equal ranks);
         the default ``"normal"`` path stays an O(1) append whenever the
         queue tail is not lower-ranked. Cross-MODEL share is still the
-        queue's weight class — this knob never changes it.
+        queue's weight class — this knob never changes it. ``typed`` rides
+        on the queued request for the server that resolves ``future``.
 
         Failure modes, in check order:
 
@@ -427,7 +431,7 @@ class WFQScheduler:
                             f"model {name!r} was removed while its queue "
                             "was full")
                     q = self._queues[name]
-            req = _Request(inputs, int(size), future, deadline_ms, rank)
+            req = _Request(inputs, int(size), future, deadline_ms, rank, typed)
             pos = len(q.reqs)
             if rank > 0 and pos and q.reqs[-1].rank < rank:
                 # queue-jump: slot ahead of every strictly-lower-rank entry

@@ -385,11 +385,32 @@ def _coalesce(requests, device: torch.device | None,
     return cat, sizes, sum(sizes), pageable, staged_bytes
 
 
-def _landed(g: dict) -> bool:
+class _Group:
+    """One pulled slice of one model between its begin and its finish.
+    ``managed``: no caller backend override, so it rides the fallback
+    ladder and feeds the model's breaker; ``probe``: the breaker's cooldown
+    probe; ``degraded``: served on the fallback plan; ``error``: the
+    begin's failure; ``outs``: what :func:`_copy_back` returned, or the
+    stream pool's futures; ``void``: dropped behind a failed finish."""
+
+    __slots__ = ("name", "reqs", "t0", "managed", "probe", "degraded", "error", "outs",
+                 "sizes", "total", "batches", "pageable", "staged", "t_begun", "void")
+
+    def __init__(self, name: str, reqs: list, t0: float, managed: bool):
+        self.name, self.reqs, self.t0, self.managed = name, reqs, t0, managed
+        self.probe = self.degraded = self.void = False
+        self.error: Exception | None = None
+        self.outs = None
+        self.sizes: list[int] = []
+        self.total = self.batches = self.pageable = self.staged = 0
+        self.t_begun = t0
+
+
+def _landed(g: _Group) -> bool:
     """Whether a begun group has nothing left on the device: its copy
     back's event has completed (a query, no wait), its pool futures are
     done, or its outputs were never the device's."""
-    out = g.get("outs")
+    out = g.outs
     if isinstance(out, _CopyBack):
         return out.slot.event.query()
     if isinstance(out, list):
@@ -829,15 +850,17 @@ class MultiModelServer:
 
     def _enqueue(self, name: str, inputs: tuple, future: Future | None,
                  timeout: float | None, deadline_ms: float | None = None,
-                 priority: str = "normal") -> int:
+                 priority: str = "normal", typed: bool = False) -> int:
+        """Queue one request; ``typed``: ``future`` takes its
+        :class:`InferResult`, else its raw output."""
         self._tracked(name)
         # requests stay where they are (host arrays or tensors): the
         # dispatch moves them onto the device that runs the chunk
         inputs = tuple(x if isinstance(x, torch.Tensor) else np.asarray(x)
                        for x in inputs)
         return self._sched.submit(name, inputs, int(np.shape(inputs[0])[0]),
-                                  future=future, timeout=timeout,
-                                  deadline_ms=deadline_ms, priority=priority)
+                                  future=future, timeout=timeout, deadline_ms=deadline_ms,
+                                  priority=priority, typed=typed)
 
     def submit(self, request, *legacy_inputs, timeout: float | None = None,
                deadline_ms: float | None = None) -> int:
@@ -879,7 +902,7 @@ class MultiModelServer:
 
     # -- dispatch -----------------------------------------------------------
 
-    def _begin_group(self, name: str, reqs: list, backend: str | None) -> dict:
+    def _begin_group(self, name: str, reqs: list, backend: str | None) -> _Group:
         """Phase 1 of serving one pulled slice: coalesce → bucket_chunks
         micro-batches → plan calls → the outputs' copy back. Kernel
         launches, graph replays and the copy into a pinned slot are
@@ -889,7 +912,7 @@ class MultiModelServer:
         ``outs`` holds what :func:`_copy_back` returned; with a stream pool
         each chunk is handed, as host arrays, to the least-loaded stream
         and ``outs`` holds the pool's futures of numpy outputs. A dispatch
-        failure rides in the ``"error"`` key."""
+        failure rides in ``error``."""
         # sanitizer checkpoint: once the async loop binds the dispatch
         # affinity, any other thread dispatching is a second dispatcher
         self._dispatch_affinity.assert_here()
@@ -900,12 +923,9 @@ class MultiModelServer:
         rec = _spans.RECORDER
         if rec is not None:
             rec.add_all(_spans.SCHEDULER_QUEUE, [r.t_submit for r in reqs], t0)
-        # "managed" = no caller backend override: only managed groups ride
-        # the fallback ladder and feed the model's breaker
-        g: dict = {"name": name, "reqs": reqs, "t0": t0, "degraded": False,
-                   "probe": False, "managed": backend is None}
+        g = _Group(name, reqs, t0, managed=backend is None)
         try:
-            br = self._breaker(name) if g["managed"] else None
+            br = self._breaker(name) if g.managed else None
             if br is not None and br.state != CLOSED:
                 # the preferred path's breaker is tripped: a granted
                 # cooldown probe retries it; else, after injected faults
@@ -913,7 +933,7 @@ class MultiModelServer:
                 # model, same tables), and after a real one it fails fast
                 # into the retry / poisoned-request / deadline triage
                 if br.allow():
-                    g["probe"] = True
+                    g.probe = True
                 elif name in self._organic_fault:
                     raise RuntimeError(
                         f"model {name!r}: its breaker is open after a failure "
@@ -921,24 +941,24 @@ class MultiModelServer:
                         f"serving it on {FALLBACK_BACKEND!r}"
                     ) from self._organic_fault[name]
                 else:
-                    g["degraded"] = True
+                    g.degraded = True
             if self._chaos is not None:
                 self._chaos.fire(
                     "plan_call", model=name,
-                    backend=(FALLBACK_BACKEND if g["degraded"] else
+                    backend=(FALLBACK_BACKEND if g.degraded else
                              backend or self.registry.backend_of(name)))
-            if g["degraded"]:
+            if g.degraded:
                 plan = self.registry.get_with_backend(name, FALLBACK_BACKEND)
             else:
                 plan = self.registry.get(name)
-            if g["degraded"] or g["probe"]:
+            if g.degraded or g.probe:
                 with self._ctr_lock:
                     h = self._health_ctrs.get(name)
                     if h is not None:
-                        h["fallback_batches" if g["degraded"] else "probe_batches"] += 1
+                        h["fallback_batches" if g.degraded else "probe_batches"] += 1
             pooled = self._pool is not None
             t = 0.0 if rec is None else time.perf_counter()
-            cat, sizes, total, pageable, staged = _coalesce(
+            cat, g.sizes, total, g.pageable, g.staged = _coalesce(
                 [r.inputs for r in reqs], None if pooled else plan.device, self._stage)
             if rec is not None:
                 rec.add(_spans.SERVER_COALESCE, t, time.perf_counter())
@@ -965,18 +985,17 @@ class MultiModelServer:
                 with self._ctr_lock:
                     self.batches_dispatched += 1
                 start += size
-            if not pooled:
-                outs = _copy_back(outs, self._back)
+            g.outs = outs if pooled else _copy_back(outs, self._back)
         except Exception as e:
-            g["error"] = e
+            g.error = e
             return g
-        g.update(outs=outs, sizes=sizes, total=total, batches=len(chunks),
-                 pageable=pageable, staged=staged, t_begun=time.perf_counter())
+        g.total, g.batches, g.t_begun = total, len(chunks), time.perf_counter()
         return g
 
-    def _finish_group(self, g: dict, behind: dict | None = None):
+    def _finish_group(self, g: _Group, behind: _Group | None = None):
         """Phase 2: wait for the group's outputs, split them per request,
-        commit counters, record latency and resolve futures. On failure the
+        commit counters, record latency and resolve each future once (with
+        the request's :class:`InferResult` where it is typed). On failure the
         model's breaker records it (preferred path only) and the slice goes
         through :meth:`_retry_or_fail`. Returns the per-request numpy
         outputs, or None on failure.
@@ -986,37 +1005,36 @@ class MultiModelServer:
         requests go back behind this slice's survivors, and its own finish
         drops its outputs and touches nothing else, so that one model's
         futures resolve in order and its breaker sees what it saw before."""
-        name, reqs = g["name"], g["reqs"]
-        if g.get("void"):
-            if "error" not in g and isinstance(g["outs"], _CopyBack):
-                g["outs"].drop()
+        name, reqs = g.name, g.reqs
+        if g.void:
+            if isinstance(g.outs, _CopyBack):
+                g.outs.drop()
             return None
-        err = g.get("error")
+        err = g.error
         if err is None:
             t_finish = time.perf_counter()
             try:
                 if self._pool is not None:
-                    arrs = [f.result() for f in g["outs"]]
+                    arrs = [f.result() for f in g.outs]
                     out = np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
-                    split = np.split(out, np.cumsum(g["sizes"])[:-1])
+                    split = np.split(out, np.cumsum(g.sizes)[:-1])
                 else:
-                    split = _split(g["outs"], g["sizes"])      # waits on the copy alone
+                    split = _split(g.outs, g.sizes)      # waits on the copy alone
             except Exception as e:
                 err = e
         # a degraded (fallback) slice neither extends nor resets the
         # preferred path's streak
-        br = (self._breaker(name)
-              if g.get("managed", True) and not g.get("degraded") else None)
+        br = self._breaker(name) if g.managed and not g.degraded else None
         if err is not None:
             self.last_drain_errors[name] = err
             if behind is not None:
-                behind["void"] = True
-                self._sched.requeue_front(name, behind["reqs"])
+                behind.void = True
+                self._sched.requeue_front(name, behind.reqs)
             if br is not None:
                 br.record_failure()
                 if not isinstance(err, InjectedFaultError):
                     self._organic_fault.setdefault(name, err)
-            self._retry_or_fail(name, reqs, err, probe=g.get("probe", False))
+            self._retry_or_fail(name, reqs, err, probe=g.probe)
             return None
         if br is not None:
             br.record_success()      # a probe's success reinstates
@@ -1026,21 +1044,21 @@ class MultiModelServer:
         # service = this group's own dispatch phase + its own finish, not
         # the wall time since begin (which would charge later groups for
         # earlier groups' host work)
-        service_ms = ((g["t_begun"] - g["t0"]) + (time.perf_counter() - t_finish)) * 1e3
+        service_ms = ((g.t_begun - g.t0) + (time.perf_counter() - t_finish)) * 1e3
         self._sched.record_service(name, reqs, service_ms)
         with self._ctr_lock:
             c = self._counters.get(name)   # None once remove_model'd
             if c is not None:
                 c["requests_served"] += len(reqs)
-                c["batches_run"] += g["batches"]
-                c["flows_served"] += g["total"]
-            self.h2d_pageable_bytes += g["pageable"]
-            self.h2d_staged_bytes += g["staged"]
+                c["batches_run"] += g.batches
+                c["flows_served"] += g.total
+            self.h2d_pageable_bytes += g.pageable
+            self.h2d_staged_bytes += g.staged
         rec = _spans.RECORDER
         t = 0.0 if rec is None else time.perf_counter()
         for r, o in zip(reqs, split):
-            if r.future is not None:
-                r.future.queue_wait_ms = (r.t_dispatch - r.t_submit) * 1e3
+            if r.typed:
+                o = InferResult(name, o, r.size, queue_wait_ms=(r.t_dispatch - r.t_submit) * 1e3)
             _resolve_future(r.future, result=o)
         if rec is not None:
             rec.add(_spans.SERVER_RESOLVE, t, time.perf_counter())
@@ -1113,9 +1131,9 @@ class MultiModelServer:
             for g in begun:
                 outs = self._finish_group(g)
                 if outs is None:
-                    failed.add(g["name"])
+                    failed.add(g.name)
                 else:
-                    results.setdefault(g["name"], []).extend(outs)
+                    results.setdefault(g.name, []).extend(outs)
             with self._ctr_lock:
                 self.rounds += 1
         self.last_shed = {name: len(reqs)
@@ -1140,8 +1158,8 @@ class MultiModelServer:
             # a private future per request keeps served/shed alignment
             fut: Future = Future()
             try:
-                self._enqueue(req.model, req.inputs, fut, None,
-                              deadline_ms=req.deadline_ms, priority=req.priority)
+                self._enqueue(req.model, req.inputs, fut, None, deadline_ms=req.deadline_ms,
+                              priority=req.priority, typed=typed)
             except DeadlineExceededError as e:
                 _resolve_future(fut, error=e)   # admission refusal == shed
             order.append((req, fut))
@@ -1161,11 +1179,7 @@ class MultiModelServer:
             cause = (next(iter(failed.values())) if failed
                      else next(iter(shed.values()))[0])
             raise PartialDrainError(failed, by_model, shed=shed) from cause
-        if not typed:
-            return [fut.result() for _, fut in order]
-        return [InferResult(req.model, fut.result(), req.flows,
-                            queue_wait_ms=getattr(fut, "queue_wait_ms", None))
-                for req, fut in order]
+        return [fut.result() for _, fut in order]
 
     def close(self) -> None:
         """Release the stream pool's workers (a no-op without one); queued
@@ -1358,25 +1372,6 @@ class AsyncMultiModelServer(MultiModelServer):
 
     # -- ingestion ----------------------------------------------------------
 
-    def _typed_future(self, req: InferRequest, raw: Future) -> Future:
-        """A future of :class:`InferResult` over a raw-output future."""
-        out: Future = Future()
-
-        def _done(f: Future) -> None:
-            if f.cancelled():
-                out.cancel()
-                return
-            exc = f.exception()
-            if exc is not None:
-                _resolve_future(out, error=exc)
-            else:
-                _resolve_future(out, result=InferResult(
-                    req.model, f.result(), req.flows,
-                    queue_wait_ms=getattr(f, "queue_wait_ms", None)))
-
-        raw.add_done_callback(_done)
-        return out
-
     def submit(self, request, *legacy_inputs, timeout: float | None = None,
                deadline_ms: float | None = None) -> Future:
         """Thread-safe enqueue of one :class:`InferRequest`; returns a
@@ -1395,10 +1390,10 @@ class AsyncMultiModelServer(MultiModelServer):
             try:
                 self._enqueue(request.model, request.inputs, fut, timeout,
                               deadline_ms=request.deadline_ms,
-                              priority=request.priority)
+                              priority=request.priority, typed=True)
             except DeadlineExceededError as e:
                 _resolve_future(fut, error=e)
-            return self._typed_future(request, fut)
+            return fut
         _warn_legacy("AsyncMultiModelServer.submit(name, *inputs)",
                      "pass an InferRequest")
         try:
@@ -1503,7 +1498,7 @@ class AsyncMultiModelServer(MultiModelServer):
                     # a model whose breaker is not closed gets no group
                     # begun behind one of its own: a probe voided behind a
                     # failed finish would hold its slot for good
-                    if any("error" in g or g["probe"] or g["degraded"] for g in ahead):
+                    if any(g.error is not None or g.probe or g.degraded for g in ahead):
                         done, ahead = ahead, []
                         self._finish_round(done)
                     if rec is not None:
@@ -1527,12 +1522,12 @@ class AsyncMultiModelServer(MultiModelServer):
         for g in groups:
             try:
                 self._finish_group(
-                    g, behind=next((h for h in after if h["name"] == g["name"]), None))
+                    g, behind=next((h for h in after if h.name == g.name), None))
             except Exception as e:
                 # _finish_group routes dispatch errors onto futures;
                 # anything escaping it would strand this group's
                 self.loop_errors.append(e)
-                for r in g["reqs"]:
+                for r in g.reqs:
                     _resolve_future(r.future, error=e)
         with self._ctr_lock:
             self.rounds += 1

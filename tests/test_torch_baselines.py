@@ -18,6 +18,8 @@ Baselines: ``binarize`` exact with an equal straight-through gradient;
 evaluated outputs within rtol = 1e-4, atol = 1e-5 (the reference's own).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,8 @@ reference's own checkpoint tests ported, directories that restore bit-equal
 across the two packages in both directions, bf16 leaves, and the
 ``AsyncCheckpointer`` copy made before its thread starts."""
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import json
 import os
 import threading

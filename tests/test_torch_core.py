@@ -7,6 +7,8 @@ datasets and quantization codes must be bit-exact; float results are held
 to the stated tolerance (sum order differs between the frameworks).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import subprocess
 import sys
 

@@ -6,6 +6,8 @@ runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

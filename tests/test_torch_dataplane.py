@@ -5,6 +5,8 @@ outputs. The port's batched ``run_batch`` is held exactly to its own
 per-packet ``run_packet`` and to the reference's ``run_batch``. CRC tests
 are ported from ``tests/test_dataplane.py``."""
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -13,6 +13,8 @@ name the port's snippets pass as ``device=``; on the card it is
 ``"cuda"``).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import re
 from functools import partial
 from pathlib import Path

@@ -10,6 +10,8 @@
 * The report's tables from a fixed JSON.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import json
 
 import pytest

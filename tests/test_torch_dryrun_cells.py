@@ -6,6 +6,8 @@ gradients reduce-scattered (ZeRO-3); no process group or model knob is left
 behind.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import pytest
 import torch.distributed as dist
 

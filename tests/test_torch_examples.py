@@ -30,6 +30,8 @@ Every script runs end to end with ``--device cpu`` and raises without a
 card when no ``--device`` is given; none imports jax or repro.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import importlib.util
 import pathlib
 import subprocess

@@ -19,6 +19,8 @@ reference's own:
     activation (matmul ulps may move a threshold there).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

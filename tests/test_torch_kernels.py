@@ -8,6 +8,8 @@ exact. The CUDA kernels themselves are held against the plain versions on
 the card (tests/test_torch_cuda.py and ``chip_smoke.py``).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -10,6 +10,8 @@ markers.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import ast
 import re
 import subprocess

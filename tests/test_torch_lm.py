@@ -12,6 +12,8 @@ tightest: its Mamba state grows to ~60 over 32 steps, so its logits differ
 by up to ~7e-5 — still inside the limit, which is therefore not loosened.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import dataclasses
 import functools
 

@@ -16,6 +16,8 @@ to a bf16 result in both frameworks, so they hold to two bf16 ulps
 (2^-7 relative).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import dataclasses
 import importlib.util
 import pathlib

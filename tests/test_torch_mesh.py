@@ -25,6 +25,8 @@ against the reference's, and ``Server``, ``TrainLoop`` and elastic
   and the (2, 2) save restores bit-equal onto (1, 1) again.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import json
 import os
 

@@ -13,6 +13,8 @@ picked by DTensor per call (``models/sharding.py`` ``dense``,
   ``write_at``'s local write on a fake 8-rank (2, 4) mesh.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import pytest
 import torch
 import torch.distributed as dist

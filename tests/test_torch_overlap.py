@@ -9,6 +9,8 @@ failures, results that outlive the slot they came back in, and ``stop``.
 On the card, one case per plan family: answers bit-equal to the sync
 ``drain()``, and the loop waits on events alone. Imports no JAX."""
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import importlib.util
 import pathlib
 import threading
@@ -103,7 +105,7 @@ def _server(names=("m",), gate=None, event=StubEvent, **kw):
         return begin(name, reqs, backend)
 
     def logged_finish(g, behind=None):
-        log.append(("finish", g["name"], _ids(g["reqs"])))
+        log.append(("finish", g.name, _ids(g.reqs)))
         return finish(g, behind=behind)
 
     srv._begin_group, srv._finish_group = logged_begin, logged_finish

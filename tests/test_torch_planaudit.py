@@ -14,6 +14,8 @@ JAX package's, and its Hopper rules against the kernels' own planners.
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import json
 import warnings
 

@@ -16,6 +16,8 @@ LUT and bias within 1e-5 and thresholds within 1e-4 (measured by the test
 and printed with ``-rP``: thresholds and bias equal, LUT 1.2e-7).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,8 @@ LRU bound, explicit discard and de-duplicated concurrent first calls — plus
 the build options the port adds to the key (the device).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import dataclasses
 import gc
 import sys

@@ -4,6 +4,8 @@ server's ``graph_kernels`` counter present and 0; on the card, the kernel
 nodes counted in one captured graph equal the kernels ``torch.profiler``
 sees its replay launch. Imports no JAX."""
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,8 @@ least-loaded placement and a crashed worker that is respawned, driven by
 events and a deterministic injected fault, each wait with its own timeout.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import threading
 import time
 from concurrent.futures import Future

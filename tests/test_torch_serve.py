@@ -9,6 +9,8 @@ within rtol = atol = 1e-4 of the reference ``gather``; the port's
 ``kernel_q8`` within 1e-4 of the reference ``kernel_q8`` (same int8 codes).
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import importlib.util
 import pathlib
 

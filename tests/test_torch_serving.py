@@ -22,6 +22,8 @@ reject/block backpressure and ``infer_async``, a stream pool of two CPU
 registry. Every wait has its own timeout.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import asyncio
 import threading
 
@@ -39,10 +41,10 @@ from repro.nets.rnn import pegasusify_rnn, train_rnn
 from repro_torch import interop
 from repro_torch.engine import BACKENDS, PlanRegistry, build_plan, resolve_devices
 from repro_torch.launch.chaos import FaultInjector, InjectedFaultError
-from repro_torch.launch.request import InferRequest
+from repro_torch.launch.request import InferRequest, InferResult
 from repro_torch.launch.serve import (
-    AsyncMultiModelServer, MultiModelServer, PartialDrainError, PegasusServer,
-    QueueFullError, ServerStoppedError,
+    AsyncMultiModelServer, DeadlineExceededError, MultiModelServer, PartialDrainError,
+    PegasusServer, QueueFullError, ServerStoppedError,
 )
 
 TOL = 1e-4
@@ -245,6 +247,52 @@ def test_async_server_infer_async(models):
     for r in results:
         assert r.model == "rnn" and r.flows == 5
         np.testing.assert_array_equal(r.output, want)
+
+
+@pytest.mark.parametrize("path", ["AsyncMultiModelServer.submit", "MultiModelServer.serve"])
+def test_a_typed_request_is_answered_by_its_one_future(models, path):
+    """Each typed request's future is resolved once, with its
+    ``InferResult``: the request's model and flows, its plan's own
+    ``gather`` output to the bit (and the reference's within its
+    tolerance: the two frameworks sum in different orders), and the time
+    it waited in the queue. A
+    request ``discard_pending`` drops cancels the caller's future; a shed
+    request fails it with ``DeadlineExceededError`` (``serve`` reports it
+    in ``PartialDrainError.shed``)."""
+    ref_srv = JaxMultiModelServer(backend="gather", **SERVER_KW)
+    for name, model in models["ref"].items():
+        ref_srv.add_model(name, model, priority=PRIORITY[name], audit="off", **BUILD_KW)
+    want = ref_srv.serve([JaxRequest(n, jnp.asarray(x), priority=p)
+                          for n, x, p in models["mix"]])
+    reqs = _requests(models)
+    # shed at its first pull: its deadline has passed by then
+    doomed = InferRequest("mlp", models["src"]["mlp"][:2], deadline_ms=1e-6)
+    if path == "MultiModelServer.serve":
+        srv = _port_server(models, backend="gather")
+        out = srv.serve(reqs)
+        with pytest.raises(PartialDrainError) as err:
+            srv.serve([doomed])
+        (shed,) = err.value.shed["mlp"]
+        assert isinstance(shed, DeadlineExceededError)
+    else:
+        srv = _port_server(models, AsyncMultiModelServer, backend="gather")
+        dropped = srv.submit(InferRequest("ae", models["src"]["ae"][:3]))
+        assert srv.discard_pending("ae") == 1
+        assert dropped.cancelled()
+        futs = [srv.submit(r) for r in reqs]
+        shed = srv.submit(doomed)
+        with srv:
+            out = [f.result(timeout=WAIT) for f in futs]
+            with pytest.raises(DeadlineExceededError):
+                shed.result(timeout=WAIT)
+    assert srv.stats()["serving"]["requests_served"] == len(reqs)
+    for req, res, ref in zip(reqs, out, want):
+        assert isinstance(res, InferResult)
+        assert (res.model, res.flows) == (req.model, req.flows)
+        alone = srv.registry.get(req.model)(*req.inputs, backend="gather").numpy()
+        np.testing.assert_array_equal(res.output, alone)
+        np.testing.assert_allclose(res.output, np.asarray(ref.output), rtol=TOL, atol=TOL)
+        assert res.queue_wait_ms is not None and res.queue_wait_ms >= 0
 
 
 def test_stream_pool_server_matches_inline(models):

@@ -9,6 +9,8 @@ every backend, fused and unfused, at an exact bucket and a ragged batch, and
 in every family. On the CPU every kernel backend runs its plain version.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import numpy as np
 import pytest
 import torch

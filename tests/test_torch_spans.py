@@ -6,6 +6,8 @@ with the server's counters; ``h2d_pageable_bytes`` and
 recorder drops and counts. One case needs the card (the graph replay's
 spans). Imports no JAX."""
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import sys
 import threading
 

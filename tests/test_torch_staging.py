@@ -5,6 +5,8 @@ pool paths of ``_coalesce`` left as they were; on the card, served outputs
 bit-equal to the unstaged path, two models in one round, a buffer that
 grows, and the byte counters. Imports no JAX."""
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import importlib.util
 import pathlib
 import sys

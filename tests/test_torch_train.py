@@ -23,6 +23,8 @@ weight from a still one by its absolute value. The ``TrainLoop`` test keeps the 
 schedule, where a schedule read one step off doubles the change.
 """
 
+import torch_threads  # noqa: F401  (this worker's share of the cores)
+
 import dataclasses
 import importlib.util
 import pathlib
