@@ -33,6 +33,7 @@ Backends are semantics-identical up to quantization:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import warnings
 from typing import Any, Callable, Sequence
 
@@ -408,11 +409,16 @@ class ExecutionPlan:
     forward once eagerly (its output answers that call), then captures the
     same forward into a ``torch.cuda.CUDAGraph`` under the process-wide
     capture lock, and counts one trace. Every later call copies its batch
-    into the static inputs (zeroing the padded rows), replays, and returns
-    a FRESH copy of the static output made on the same stream — two chunks
-    of one request list replay one graph, so a view would be overwritten.
-    Graphs of one device and stream share one memory pool, and a replay
-    holds that pool's lock from its copy-in until its output copy is
+    into the static inputs (zeroing the padded rows) and replays. A call
+    through ``plan(...)`` returns a FRESH copy of the static output made
+    on the same stream — two chunks of one request list replay one graph,
+    so a view would be overwritten. The served path's
+    :meth:`call_into` makes no copy of its own: its inputs cross into the
+    static inputs in one copy each (from a pinned host slot, padded rows
+    and all), and the static output's rows go to the caller's sink, which
+    enqueues their one copy out before the lock is let go. Graphs of one
+    device and stream share one memory pool, and a replay holds that
+    pool's lock from its copy-in until its output copy is
     enqueued; each graph's kernel launches, tallied at capture, are added
     to the launch counters at every replay, and the kernel nodes it holds,
     counted once at capture, to :attr:`graph_kernels`. A failed capture
@@ -499,7 +505,8 @@ class ExecutionPlan:
         self.devices = devices
 
     @property
-    def _sharded(self) -> bool:
+    def sharded(self) -> bool:
+        """Whether every call splits over several devices (``shard_over``)."""
         return self.devices is not None and len(self.devices) > 1
 
     def step_rows_per_flow(self, step) -> int:
@@ -540,7 +547,7 @@ class ExecutionPlan:
         be = self.backend if backend is None else backend
         if be not in BACKENDS:
             raise ValueError(f"unknown backend {be!r}; expected one of {BACKENDS}")
-        if self._sharded:
+        if self.sharded:
             if device is not None:
                 raise ValueError(
                     "this plan is sharded across a device mesh at build time (devices=); "
@@ -562,6 +569,33 @@ class ExecutionPlan:
         with torch.no_grad():
             y = self._forward(lambda step, x: step.apply(x, be), state, *padded)
         return y if bucket == b else y[:b]
+
+    def call_into(self, inputs: Sequence, rows: int, into: Callable[[torch.Tensor], Any], *,
+                  backend: str | None = None) -> None:
+        """The served path's call on a single-device CUDA plan: ``rows``
+        flows, each input crossing into the graph's static input in one
+        ``non_blocking`` copy, and the output's ``rows`` rows handed to
+        ``into`` with no tensor made on the way.
+
+        An input is a host view of a pinned slot or a tensor on the plan's
+        device, holding between ``rows`` rows and the bucket's; the rows
+        past ``rows`` are padding and must be zero (rows short of the
+        bucket are zeroed on the device). ``into`` gets the static
+        output's rows on the device while the pool's lock is held, and
+        must enqueue on the current stream whatever reads them before it
+        returns: the next replay of the graph overwrites them. The caller
+        keeps a host input unwritten until an event recorded on the
+        current stream after this call has completed."""
+        be = self.backend if backend is None else backend
+        if be not in BACKENDS:
+            raise ValueError(f"unknown backend {be!r}; expected one of {BACKENDS}")
+        if self.sharded or self.device.type != "cuda":
+            raise ValueError("call_into replays a single-device plan's CUDA graphs; "
+                             f"this plan is {'sharded' if self.sharded else self.device.type}")
+        bucket = bucket_batch(rows, self.buckets)
+        STATS.jit_calls += 1
+        self._note_call(be, bucket, rows)
+        self._replay(be, bucket, rows, self.device, self._state, inputs, into=into)
 
     def _sharded_call(self, be: str, inputs, jit: bool) -> torch.Tensor:
         """One call split into equal row shards, one per device (see the
@@ -623,9 +657,12 @@ class ExecutionPlan:
         self._note_call(be, bucket, b)
         return self._replay(be, bucket, b, dev, state, inputs)
 
-    def _replay(self, be, bucket, b, dev, state, inputs, count: bool = True) -> torch.Tensor:
+    def _replay(self, be, bucket, b, dev, state, inputs, count: bool = True,
+                into=None) -> torch.Tensor | None:
         """Replay the graph at ``(be, bucket)`` on ``dev`` and the current
-        stream, capturing it first (a trace when ``count``)."""
+        stream, capturing it first (a trace when ``count``); return a copy
+        of its ``b`` output rows, or with ``into`` hand them to it (see
+        :meth:`call_into`)."""
         srcs = tuple(x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
                      for x in inputs)
         stream = torch.cuda.current_stream(dev)
@@ -636,28 +673,42 @@ class ExecutionPlan:
             if g is not None:
                 self._graph_kernels += g.kernels
         if g is None:
-            y = self._capture(key, be, bucket, b, dev, state, srcs, stream, count)
+            y = self._capture(key, be, bucket, b, dev, state, srcs, stream, count,
+                              non_blocking=into is not None)
             if y is not None:
-                return y
+                if into is None:
+                    return y
+                into(y)
+                return None
             with self._lock:         # a racing call captured it first
                 g = self._graphs[key]
                 self._graph_kernels += g.kernels
         with g.pool.lock:
             for buf, x in zip(g.inputs, srcs):
-                buf[:b].copy_(x)
-                if b < bucket:
-                    buf[b:].zero_()
+                n = len(x)           # b rows, or up to the bucket's with zero padding
+                (buf if n == bucket else buf[:n]).copy_(x, non_blocking=into is not None)
+                if n < bucket:
+                    buf[n:].zero_()
             g.graph.replay()
-            y = g.output[:b].clone()
+            y = g.output if b == bucket else g.output[:b]
+            if into is None:
+                y = y.clone()
+            else:
+                into(y)
+                y = None
         _lib.add_launches(g.launches)
         return y
 
-    def _capture(self, key, be, bucket, b, dev, state, srcs, stream, count: bool = True):
-        """First call at ``key``: fill new static inputs, run the forward
-        once eagerly on the capture stream (its output answers this call),
-        then capture it into a graph and count its kernel nodes before
-        instantiating it. Returns None when a racing call captured ``key``
-        first."""
+    def _capture(self, key, be, bucket, b, dev, state, srcs, stream, count: bool = True,
+                 non_blocking: bool = False):
+        """First call at ``key``: fill new static inputs (``non_blocking``
+        from a pinned slot), run the forward once eagerly on the capture
+        stream (its output answers this call), then capture it into a graph
+        and count its kernel nodes before instantiating it. Python's cyclic
+        collector is paused for the capture: it could destroy an old graph
+        or free a pinned buffer in the middle of it, CUDA calls that a
+        thread-local capture refuses, and the capture would fail. Returns
+        None when a racing call captured ``key`` first."""
         apply = lambda step, x: step.apply(x, be)
         with _CAPTURE_LOCK, torch.cuda.device(dev):
             with self._lock:
@@ -666,7 +717,7 @@ class ExecutionPlan:
             static = tuple(torch.zeros((bucket, *x.shape[1:]), dtype=x.dtype,
                                        device=dev) for x in srcs)
             for buf, x in zip(static, srcs):
-                buf[:b].copy_(x)
+                buf[:len(x)].copy_(x, non_blocking=non_blocking)
             side = _CAPTURE_STREAMS.get(dev)
             if side is None:
                 side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(device=dev,
@@ -678,10 +729,16 @@ class ExecutionPlan:
             with torch.cuda.stream(side), torch.no_grad():
                 warm = self._forward(apply, state, *static)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with _lib.recording() as tally, torch.no_grad():
-                with torch.cuda.graph(graph, pool=pool.handle, stream=side,
-                                      capture_error_mode="thread_local"):
-                    out = self._forward(apply, state, *static)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with _lib.recording() as tally, torch.no_grad():
+                    with torch.cuda.graph(graph, pool=pool.handle, stream=side,
+                                          capture_error_mode="thread_local"):
+                        out = self._forward(apply, state, *static)
+            finally:
+                if collecting:
+                    gc.enable()
             kernels = _lib.graph_kernel_nodes(graph.raw_cuda_graph())
             graph.instantiate()
             with self._lock:

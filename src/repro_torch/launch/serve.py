@@ -45,6 +45,7 @@ import time
 import warnings
 from collections import deque
 from concurrent.futures import Future
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,7 +55,7 @@ from repro_torch.analysis.sanitizer import ThreadAffinity, make_lock
 from repro_torch.configs.registry import ArchConfig, get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.engine import DEFAULT_BUCKETS, PlanRegistry, bucket_chunks, build_plan
-from repro_torch.engine.plan import resolve_devices
+from repro_torch.engine.plan import bucket_batch, resolve_devices
 from repro_torch.models.sharding import replicate
 from repro_torch.models.transformer import (
     decode_step, forward_train, init_decode_state, init_model,
@@ -240,43 +241,54 @@ class _StageSlot:
             self.typed, self.layout = (t, t.numpy()), (dtype, trailing)
         return self.typed[0][:n]
 
-    def pack(self, cols: list[list]) -> list[torch.Tensor]:
+    def pack(self, cols: list[list], rows: int | None = None) -> list[torch.Tensor]:
         """Pack each input position's per-request host arrays (numpy arrays,
         CPU tensors or lists) into this slot's buffer for that position, one
-        host copy a request; returns one ``(total, *trailing)`` view a
-        position, in the dtype ``torch.cat`` gives and raising as it does.
-        Numpy requests of one dtype and trailing shape, the usual case, are
-        copied by numpy, which costs less per call than torch."""
+        host copy a request; returns one ``(rows, *trailing)`` view a
+        position (``rows`` the requests' total when None, the rows past the
+        total zero), in the dtype ``torch.cat`` gives and raising as it
+        does. Numpy requests of one dtype and trailing shape, the usual
+        case, are copied by numpy, which costs less per call than torch."""
         views = []
         for i, col in enumerate(cols):
             first = col[0]
             if (isinstance(first, np.ndarray) and first.ndim
                     and all(isinstance(x, np.ndarray) and x.dtype == first.dtype
                             and x.shape[1:] == first.shape[1:] for x in col)):
-                shape = (sum(len(x) for x in col), *first.shape[1:])
+                total = sum(len(x) for x in col)
+                shape = (total if rows is None else rows, *first.shape[1:])
                 out = self._bytes(i, math.prod(shape) * first.itemsize)
                 out = out.view(first.dtype).reshape(shape)
-                views.append(torch.from_numpy(np.concatenate(col, out=out)))
+                np.concatenate(col, out=out[:total])
+                out[total:] = 0
+                views.append(torch.from_numpy(out))
                 continue
             parts = [torch.as_tensor(x) for x in col]
             dtype = functools.reduce(torch.promote_types, (p.dtype for p in parts))
-            shape = (sum(p.shape[0] if p.dim() else 1 for p in parts), *parts[0].shape[1:])
+            total = sum(p.shape[0] if p.dim() else 1 for p in parts)
+            shape = (total if rows is None else rows, *parts[0].shape[1:])
             nbytes = math.prod(shape) * dtype.itemsize
             self._bytes(i, nbytes)
-            views.append(torch.cat(parts, out=self.bufs[i][:nbytes].view(dtype).view(shape)))
+            view = self.bufs[i][:nbytes].view(dtype).view(shape)
+            torch.cat(parts, out=view[:total])
+            if total < shape[0]:
+                view[total:].zero_()
+            views.append(view)
         return views
 
 
 class PinnedStage:
     """Page-locked host buffers that a server packs each group's host inputs
-    into, so that every input crosses to the card in one asynchronous copy
+    into, so that every input crosses to the card in asynchronous copies
+    (on the direct path one a chunk, straight into a graph's static input)
     instead of one blocking pageable copy a request.
 
     A slot is handed out only once the event recorded after its last copies
     has completed: each group of a round in flight holds a slot of its own,
     and a slot still being read by the device is never written. A second
-    stage brings each group's outputs back (:meth:`copy_back`): there a
-    slot is handed back only once the host has taken the outputs out.
+    stage brings each group's outputs back (each chunk's rows on the direct
+    path, :meth:`copy_back` off it): there a slot is handed back only once
+    the host has taken the outputs out.
     ``pin`` and ``event`` (a factory of objects with ``record(stream)``,
     ``query()`` and ``synchronize()``) are what tests replace to run it
     without a card."""
@@ -314,14 +326,14 @@ class PinnedStage:
         the device) into a slot, which does not block the host, and record
         the slot's event after it. The slot is the returned handle's until
         the host has taken the outputs out."""
-        slot = self.take(out.device)
+        back = _CopyBack(self, self.take(out.device), len(out))
         try:
-            slot.rows(out.dtype, out.shape[1:], len(out)).copy_(out, non_blocking=True)
-            slot.event.record(stream)
+            back.write(0, out)
+            back.slot.event.record(stream)
         except Exception:
-            self._hand_back(slot)
+            back.drop()
             raise
-        return _CopyBack(self, slot, len(out))
+        return back
 
 
 class _CopyBack:
@@ -332,6 +344,13 @@ class _CopyBack:
 
     def __init__(self, stage: PinnedStage, slot: _StageSlot, rows: int):
         self.stage, self.slot, self.rows = stage, slot, rows
+
+    def write(self, at: int, y: torch.Tensor) -> None:
+        """Enqueue on the current stream the copy of ``y``, output rows on
+        the device, into the slot's rows from ``at`` on; it does not block
+        the host."""
+        self.slot.rows(y.dtype, y.shape[1:], self.rows)[at:at + len(y)].copy_(
+            y, non_blocking=True)
 
     def result(self) -> np.ndarray:
         """Wait on the copy's event alone, never on the stream, which may
@@ -349,40 +368,65 @@ class _CopyBack:
         self.stage._hand_back(self.slot)
 
 
-def _coalesce(requests, device: torch.device | None,
-              stage: PinnedStage) -> tuple[list, list[int], int, int, int]:
+class _Coalesced(NamedTuple):
+    """A group's requests in one place for one plan (:func:`_coalesce`)."""
+
+    inputs: list            # one concatenation an input position
+    sizes: list[int]        # the requests' rows
+    total: int
+    chunks: list[int]       # the total cut by bucket_chunks
+    pageable: int           # bytes bound for the device from pageable host memory
+    staged: int             # bytes bound for it through the stage
+    slot: "_StageSlot | None"   # held: the staged inputs are views of it
+
+
+def _coalesce(requests, device: torch.device | None, stage: PinnedStage,
+              buckets=DEFAULT_BUCKETS, max_batch: int | None = None,
+              hold: bool = False) -> _Coalesced:
     """Per-input concatenations on ``device`` (numpy on the host when
-    ``device`` is None), per-request sizes, their total, and the bytes
-    copied onto ``device`` from pageable host memory and through ``stage``.
+    ``device`` is None), per-request sizes, their total and its
+    ``bucket_chunks``, and the bytes bound for ``device`` from pageable
+    host memory and through ``stage``.
 
     On a CUDA device, an input that every request holds on the host is
-    packed into a slot of ``stage`` and crosses in one copy that does not
-    block the host; an input some request holds on the card is
-    concatenated there."""
+    packed into a slot of ``stage``. With ``hold`` its concatenation is the
+    slot's host view, padded with zero rows up to the last chunk's bucket,
+    and the slot comes back held: the caller copies the chunks out of it
+    and then releases it (:meth:`PinnedStage.release`). Without, it
+    crosses at once in one copy that does not block the host. An input
+    some request holds on the card is concatenated there."""
     sizes = [int(np.shape(r[0])[0]) for r in requests]
+    total = sum(sizes)
+    chunks = bucket_chunks(total, buckets, max_batch)
     cols = [[r[i] for r in requests] for i in range(len(requests[0]))]
     if device is None:
-        return [np.concatenate([_host(x) for x in col]) for col in cols], sizes, sum(sizes), 0, 0
+        return _Coalesced([np.concatenate([_host(x) for x in col]) for col in cols],
+                          sizes, total, chunks, 0, 0, None)
     staged = ([i for i, col in enumerate(cols)
                if all(not isinstance(x, torch.Tensor) or x.device.type == "cpu" for x in col)]
               if device.type == "cuda" else [])
     cat = [None] * len(cols)
-    staged_bytes = 0
-    if staged:
-        stream = torch.cuda.current_stream(device)
-        slot = stage.take(device)
-        try:
-            for i, view in zip(staged, slot.pack([cols[i] for i in staged])):
-                cat[i] = view.to(device, non_blocking=True)
-                staged_bytes += view.nbytes
-        finally:
-            stage.release(slot, stream)
     pageable = 0
-    for i, col in enumerate(cols):
-        if cat[i] is None:
+    for i, col in enumerate(cols):    # first, so that nothing but the pack can raise
+        if i not in staged:           # while a slot is held
             cat[i] = torch.cat([torch.as_tensor(x, device=device) for x in col])
             pageable += sum(_pageable_nbytes(x) for x in col)
-    return cat, sizes, sum(sizes), pageable, staged_bytes
+    staged_bytes, slot = 0, None
+    if staged:
+        stream = torch.cuda.current_stream(device)
+        rows = total - chunks[-1] + bucket_batch(chunks[-1], buckets) if hold else None
+        slot = stage.take(device)
+        try:
+            for i, view in zip(staged, slot.pack([cols[i] for i in staged], rows)):
+                cat[i] = view if hold else view.to(device, non_blocking=True)
+                staged_bytes += view.nbytes // len(view) * total    # padding not counted
+        except BaseException:
+            stage.release(slot, stream)
+            raise
+        if not hold:
+            stage.release(slot, stream)
+            slot = None
+    return _Coalesced(cat, sizes, total, chunks, pageable, staged_bytes, slot)
 
 
 class _Group:
@@ -390,7 +434,7 @@ class _Group:
     ``managed``: no caller backend override, so it rides the fallback
     ladder and feeds the model's breaker; ``probe``: the breaker's cooldown
     probe; ``degraded``: served on the fallback plan; ``error``: the
-    begin's failure; ``outs``: what :func:`_copy_back` returned, or the
+    begin's failure; ``outs``: what :func:`_serve_inline` returned, or the
     stream pool's futures; ``void``: dropped behind a failed finish."""
 
     __slots__ = ("name", "reqs", "t0", "managed", "probe", "degraded", "error", "outs",
@@ -418,10 +462,65 @@ def _landed(g: _Group) -> bool:
     return True
 
 
+def _serve_inline(plan, requests, stage: PinnedStage, back: PinnedStage, *, backend,
+                  max_batch: int | None, jit: bool = True, each=None):
+    """Serve ``requests`` (input tuples) through ``plan`` on the calling
+    thread: coalesce them, call the plan once a chunk and start the
+    outputs' way back. Returns the :class:`_Coalesced` requests and what
+    :func:`_split` takes; ``each(direct)`` is called after each chunk's
+    plan call.
+
+    On a single-device CUDA plan that replays its graphs (the direct
+    path), each chunk's data crosses the plan boundary once each way
+    (:meth:`ExecutionPlan.call_into`): the staged inputs go from the
+    stage's slot straight into the graph's static inputs, the last chunk
+    with its padded rows, and the output rows straight into their rows of
+    one slot of ``back``, whose event is recorded after the last chunk's
+    copy. The input slot is released once every chunk's copies are
+    enqueued, and a group that fails partway hands both slots back. Off
+    that path each call returns a fresh tensor and :func:`_copy_back`
+    brings them back."""
+    direct = jit and plan.device.type == "cuda" and not plan.sharded
+    rec = _spans.RECORDER
+    t = 0.0 if rec is None else time.perf_counter()
+    co = _coalesce(requests, plan.device, stage, plan.buckets, max_batch, hold=direct)
+    if rec is not None:
+        rec.add(_spans.SERVER_COALESCE, t, time.perf_counter())
+    stream = torch.cuda.current_stream(plan.device) if direct else None
+    sink, outs, start, last = None, [], 0, len(co.chunks) - 1
+    try:
+        if direct:
+            sink = _CopyBack(back, back.take(plan.device), co.total)
+        for i, size in enumerate(co.chunks):
+            end = None if i == last else start + size     # the last takes the padded rows
+            sl = co.inputs if start == 0 and end is None else [c[start:end] for c in co.inputs]
+            t = 0.0 if rec is None else time.perf_counter()
+            if direct:
+                plan.call_into(sl, size, functools.partial(sink.write, start), backend=backend)
+            else:
+                outs.append(plan(*sl, backend=backend, jit=jit))
+            if rec is not None:
+                rec.add(_spans.PLAN_CALL, t, time.perf_counter())
+            if each is not None:
+                each(direct)
+            start += size
+        if direct:
+            sink.slot.event.record(stream)
+    except BaseException:
+        if sink is not None:
+            back.release(sink.slot, stream)
+        raise
+    finally:
+        if co.slot is not None:
+            stage.release(co.slot, stream)
+    return co, (sink if direct else _copy_back(outs, back))
+
+
 def _copy_back(outs: list[torch.Tensor], stage: PinnedStage):
-    """Concatenate a group's chunk outputs and, on a CUDA device, enqueue
-    their copy into a slot of ``stage`` behind the group's plan calls;
-    returns the copy's handle, or off the card the concatenation."""
+    """Off the direct path of :func:`_serve_inline`: concatenate a group's
+    chunk outputs and, on a CUDA device, enqueue their copy into a slot of
+    ``stage`` behind the group's plan calls; returns the copy's handle, or
+    off the card the concatenation."""
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
     if out.device.type != "cuda":
         return out
@@ -429,8 +528,9 @@ def _copy_back(outs: list[torch.Tensor], stage: PinnedStage):
 
 
 def _split(back, sizes: list[int]) -> list[np.ndarray]:
-    """What :func:`_copy_back` returned, on the host (a copy into a slot is
-    waited for on its event alone) and cut back into per-request arrays."""
+    """The outputs :func:`_serve_inline` started back, on the host (a copy
+    into a slot is waited for on its event alone) and cut back into
+    per-request arrays."""
     rec = _spans.RECORDER
     t = 0.0 if rec is None else time.perf_counter()
     host = back.result() if isinstance(back, _CopyBack) else back.cpu().numpy()
@@ -593,20 +693,15 @@ class PegasusServer:
             warnings.warn(
                 "PegasusServer.serve(list of arrays) is deprecated; pass a "
                 "list of InferRequest", DeprecationWarning, stacklevel=2)
-        cat, sizes, total, _, _ = _coalesce([r.inputs for r in reqs], self.plan.device,
-                                            self._stage)
-        chunks, start = [], 0
-        for size in bucket_chunks(total, self.plan.buckets, self.max_batch):
-            chunks.append(self.plan(*(c[start : start + size] for c in cat),
-                                    backend=backend, jit=jit))
-            start += size
-        split = _split(_copy_back(chunks, self._back), sizes)
-        self.batches_run += len(chunks)
-        self.requests_served += len(sizes)
-        self.flows_served += total
+        co, back = _serve_inline(self.plan, [r.inputs for r in reqs], self._stage, self._back,
+                                 backend=backend, max_batch=self.max_batch, jit=jit)
+        split = _split(back, co.sizes)
+        self.batches_run += len(co.chunks)
+        self.requests_served += len(co.sizes)
+        self.flows_served += co.total
         if not typed:
             return split
-        return [InferResult(r.model, o, n) for r, o, n in zip(reqs, split, sizes)]
+        return [InferResult(r.model, o, n) for r, o, n in zip(reqs, split, co.sizes)]
 
 
 class MultiModelServer:
@@ -678,6 +773,9 @@ class MultiModelServer:
         self.h2d_pageable_bytes = 0                 # guarded-by: _ctr_lock
         # bytes it copied through the pinned stage instead
         self.h2d_staged_bytes = 0                   # guarded-by: _ctr_lock
+        # chunks whose data crossed the plan boundary once each way
+        # (ExecutionPlan.call_into), counted with batches_dispatched
+        self.chunks_direct = 0                      # guarded-by: _ctr_lock
         # rounds finished, and of them those finished after the next round
         # had been begun (the async loop's overlap; drain() overlaps none)
         self.rounds = 0                             # guarded-by: _ctr_lock
@@ -902,17 +1000,25 @@ class MultiModelServer:
 
     # -- dispatch -----------------------------------------------------------
 
+    def _dispatched(self, name: str, direct: bool) -> None:
+        """Count one chunk dispatched for ``name``."""
+        self.schedule_log.append(name)
+        with self._ctr_lock:
+            self.batches_dispatched += 1
+            self.chunks_direct += direct
+
     def _begin_group(self, name: str, reqs: list, backend: str | None) -> _Group:
         """Phase 1 of serving one pulled slice: coalesce → bucket_chunks
-        micro-batches → plan calls → the outputs' copy back. Kernel
-        launches, graph replays and the copy into a pinned slot are
-        asynchronous, so this returns once every chunk is enqueued on the
-        device: the caller begins every group of a round before finishing
-        any, and the async loop the next round's before finishing this one.
-        ``outs`` holds what :func:`_copy_back` returned; with a stream pool
-        each chunk is handed, as host arrays, to the least-loaded stream
-        and ``outs`` holds the pool's futures of numpy outputs. A dispatch
-        failure rides in ``error``."""
+        micro-batches → plan calls → the outputs' copy back
+        (:func:`_serve_inline`). Kernel launches, graph replays and the
+        copies into a pinned slot are asynchronous, so this returns once
+        every chunk is enqueued on the device: the caller begins every
+        group of a round before finishing any, and the async loop the next
+        round's before finishing this one. ``outs`` holds the handle
+        :func:`_split` takes; with a stream pool each chunk is handed, as
+        host arrays, to the least-loaded stream and ``outs`` holds the
+        pool's futures of numpy outputs. A dispatch failure rides in
+        ``error``."""
         # sanitizer checkpoint: once the async loop binds the dispatch
         # affinity, any other thread dispatching is a second dispatcher
         self._dispatch_affinity.assert_here()
@@ -956,40 +1062,34 @@ class MultiModelServer:
                     h = self._health_ctrs.get(name)
                     if h is not None:
                         h["fallback_batches" if g.degraded else "probe_batches"] += 1
-            pooled = self._pool is not None
-            t = 0.0 if rec is None else time.perf_counter()
-            cat, g.sizes, total, g.pageable, g.staged = _coalesce(
-                [r.inputs for r in reqs], None if pooled else plan.device, self._stage)
-            if rec is not None:
-                rec.add(_spans.SERVER_COALESCE, t, time.perf_counter())
-            chunks = bucket_chunks(total, plan.buckets, self.max_batch)
-            outs, start = [], 0
-            for size in chunks:
-                sl = (cat if start == 0 and size == total
-                      else [c[start : start + size] for c in cat])
-                if not pooled:
-                    t = 0.0 if rec is None else time.perf_counter()
-                    outs.append(plan(*sl, backend=backend))
-                    if rec is not None:
-                        rec.add(_spans.PLAN_CALL, t, time.perf_counter())
-                else:
+            inputs = [r.inputs for r in reqs]
+            if self._pool is None:
+                co, g.outs = _serve_inline(plan, inputs, self._stage, self._back,
+                                           backend=backend, max_batch=self.max_batch,
+                                           each=functools.partial(self._dispatched, name))
+            else:
+                t = 0.0 if rec is None else time.perf_counter()
+                co = _coalesce(inputs, None, self._stage, plan.buckets, self.max_batch)
+                if rec is not None:
+                    rec.add(_spans.SERVER_COALESCE, t, time.perf_counter())
+                g.outs, start = [], 0
+                for size in co.chunks:
+                    sl = tuple(c[start:start + size] for c in co.inputs)
                     # the chunk runs on the stream with the least pending
                     # work; assert_worker pins "all plan calls run on pool
                     # workers" under the sanitizer (a no-op otherwise)
-                    outs.append(self._pool.submit(
-                        lambda d, plan=plan, sl=tuple(sl): (
+                    g.outs.append(self._pool.submit(
+                        lambda d, plan=plan, sl=sl: (
                             self._pool.assert_worker(),
                             plan(*sl, backend=backend, device=d).cpu().numpy())[1],
                         size))
-                self.schedule_log.append(name)
-                with self._ctr_lock:
-                    self.batches_dispatched += 1
-                start += size
-            g.outs = outs if pooled else _copy_back(outs, self._back)
+                    self._dispatched(name, False)
+                    start += size
         except Exception as e:
             g.error = e
             return g
-        g.total, g.batches, g.t_begun = total, len(chunks), time.perf_counter()
+        g.sizes, g.total, g.batches = co.sizes, co.total, len(co.chunks)
+        g.pageable, g.staged, g.t_begun = co.pageable, co.staged, time.perf_counter()
         return g
 
     def _finish_group(self, g: _Group, behind: _Group | None = None):
@@ -1206,6 +1306,7 @@ class MultiModelServer:
             batches_dispatched = self.batches_dispatched
             h2d_pageable_bytes = self.h2d_pageable_bytes
             h2d_staged_bytes = self.h2d_staged_bytes
+            chunks_direct = self.chunks_direct
             rounds, rounds_overlapped = self.rounds, self.rounds_overlapped
             breakers = dict(self._breakers)
             hctrs = {n: dict(c) for n, c in self._health_ctrs.items()}
@@ -1234,6 +1335,7 @@ class MultiModelServer:
                 "batches_dispatched": batches_dispatched,
                 "h2d_pageable_bytes": h2d_pageable_bytes,
                 "h2d_staged_bytes": h2d_staged_bytes,
+                "chunks_direct": chunks_direct,
                 "graph_kernels": graph_kernels,
                 "rounds": rounds,
                 "rounds_overlapped": rounds_overlapped,

@@ -36,8 +36,10 @@ the server's own bookkeeping (chunking, counters, the split per request):
 ``server.wait``        the drain thread parked for work or in a retry backoff
 ``scheduler.pull``     ``WFQScheduler.pull_round``
 ``scheduler.queue``    one per request, from its submit to its dispatch
-``server.coalesce``    the requests copied to the device and concatenated
-``plan.call``          one plan call per chunk (copy-in, graph replay, clone)
+``server.coalesce``    the requests packed into a pinned slot (off the
+                       card's direct path, also copied to the device)
+``plan.call``          one plan call per chunk (copy-in, graph replay, and
+                       the output's copy into a pinned slot; no clone)
 ``server.copy_back``   the wait for a group's outputs on the host (on the
                        card: on the event after their copy into a pinned
                        slot alone) and their copy out of the slot

@@ -75,7 +75,7 @@ class FakePlan:
     def __init__(self, gate=None):
         self.gate = gate
 
-    def __call__(self, x, backend=None):
+    def __call__(self, x, backend=None, jit=True):
         if self.gate is not None:
             self.gate(int(x[0, 0]))
         return torch.as_tensor(x) * 2

@@ -511,14 +511,16 @@ def test_stats_schema_matches_reference(models, kind):
             assert counts["error"] == 0, name
     st = srv.stats()
     # beyond the reference's schema the port counts the bytes it copies
-    # from pageable host memory and through its pinned stage, the kernels
-    # its plans' graph replays launched, the rounds it finished and of them
+    # from pageable host memory and through its pinned stage, the chunks
+    # whose data crossed the plan boundary once each way, the kernels its
+    # plans' graph replays launched, the rounds it finished and of them
     # those it overlapped with the next, and each plan's rows per bucket,
     # keyed as pad_waste is
     plans = ({(): st["engine"]} if kind == "pegasus" else
              {("models", n): m for n, m in st["engine"]["models"].items()})
     extra = set() if kind == "pegasus" else {("serving", "h2d_pageable_bytes"),
                                              ("serving", "h2d_staged_bytes"),
+                                             ("serving", "chunks_direct"),
                                              ("serving", "graph_kernels"),
                                              ("serving", "rounds"),
                                              ("serving", "rounds_overlapped")}

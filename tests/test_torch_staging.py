@@ -1,9 +1,13 @@
 """The pinned stage of the serving path (``launch/serve.py`` ``PinnedStage``):
 on the CPU, its packing against ``np.concatenate`` and ``torch.cat`` on a
-plain host buffer, slot reuse behind a stub event, and the CPU and stream
-pool paths of ``_coalesce`` left as they were; on the card, served outputs
-bit-equal to the unstaged path, two models in one round, a buffer that
-grows, and the byte counters. Imports no JAX."""
+plain host buffer, zero padding rows, slot reuse behind a stub event, the
+CPU and stream pool paths of ``_coalesce`` left as they were, and every
+caller off the direct path given a fresh tensor by ``plan(*inputs)``; on
+the card, served outputs bit-equal to the unstaged path and to the plan,
+two models in one round, a buffer that grows, the byte counters, and the
+direct path (each chunk copied once each way between the stage's slots
+and the graph's static buffers): padded rows, slots held and handed back,
+a failing chunk, and ``chunks_direct``. Imports no JAX."""
 
 import torch_threads  # noqa: F401  (this worker's share of the cores)
 
@@ -17,6 +21,8 @@ import pytest
 import torch
 
 from repro_torch.data.synthetic_traffic import make_dataset
+from repro_torch.engine import bucket_batch, bucket_chunks, build_plan
+from repro_torch.engine.plan import ExecutionPlan
 from repro_torch.launch.request import InferRequest
 from repro_torch.launch.serve import (
     AsyncMultiModelServer, MultiModelServer, PegasusServer, PinnedStage, _coalesce,
@@ -109,6 +115,24 @@ def test_pack_raises_as_torch_cat(shapes):
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_pack_pads_with_zero_rows(case):
+    """Packed to more rows than the requests hold, each view carries the
+    requests' rows and then zero rows, also where an earlier pack left
+    other bytes in the buffer."""
+    rng = np.random.default_rng(3)
+    cols = [[_rng_rows(rng, n, shape, dt) for n, shape, dt in col] for col in PACK_CASES[case]]
+    slot = _stage().take(CUDA)
+    total = sum(len(x) for x in cols[0])
+    slot.pack([[np.full((total + 40, *c[0].shape[1:]), 7, c[0].dtype)] for c in cols])
+    for views in (slot.pack(cols, total + 40),
+                  slot.pack([[torch.as_tensor(x) for x in col] for col in cols], total + 40)):
+        for v, col, buf in zip(views, cols, slot.bufs):
+            assert v.shape[0] == total + 40 and v.data_ptr() == buf.data_ptr()
+            np.testing.assert_array_equal(v[:total].numpy(), np.concatenate(col))
+            assert not v[total:].any()
+
+
 def test_buffers_grow_by_doubling_and_never_shrink():
     slot = _stage().take(CUDA)
     small = [np.ones((10, 16), np.uint8)]
@@ -185,14 +209,16 @@ def test_coalesce_off_the_card_copies_as_before():
     reqs = [(_rng_rows(rng, n, (8, 2), np.uint8), _rng_rows(rng, n, (8, 60), np.uint8))
             for n in (1, 5, 40)]
     stage = _stage()
-    cat, sizes, total, pageable, staged = _coalesce(reqs, torch.device("cpu"), stage)
-    assert (sizes, total, staged) == ([1, 5, 40], 46, 0)
+    cat, sizes, total, chunks, pageable, staged, slot = _coalesce(
+        reqs, torch.device("cpu"), stage, hold=True)
+    assert (sizes, total, chunks, staged, slot) == ([1, 5, 40], 46, [32, 14], 0, None)
     assert pageable == sum(x.nbytes for r in reqs for x in r)
     for c, i in zip(cat, range(2)):
         assert isinstance(c, torch.Tensor)
         np.testing.assert_array_equal(c.numpy(), np.concatenate([r[i] for r in reqs]))
-    cat, sizes, total, pageable, staged = _coalesce(reqs, None, stage)
-    assert (pageable, staged) == (0, 0) and all(isinstance(c, np.ndarray) for c in cat)
+    cat, sizes, total, chunks, pageable, staged, slot = _coalesce(reqs, None, stage)
+    assert (pageable, staged, slot) == (0, 0, None)
+    assert all(isinstance(c, np.ndarray) for c in cat)
     for c, i in zip(cat, range(2)):
         np.testing.assert_array_equal(c, np.concatenate([r[i] for r in reqs]))
     assert stage._slots == []
@@ -219,8 +245,8 @@ def _sizes_reqs(x, sizes, offset=0):
 def test_the_cpu_serving_path_answers_and_counts_as_before(mlp_cpu, pool):
     """On a CPU plan the outputs equal the plan's on the concatenated
     requests, ``h2d_pageable_bytes`` counts every request's bytes as
-    before (0 on the stream pool, which copies on its workers), and the
-    stage stays empty."""
+    before (0 on the stream pool, which copies on its workers), no chunk
+    is counted direct, and the stage stays empty."""
     banks, x = mlp_cpu
     reqs = _sizes_reqs(x, (1, 3, 64, 70, 1, 130))
     kw = dict(devices=["cpu", "cpu"]) if pool else {}
@@ -237,11 +263,77 @@ def test_the_cpu_serving_path_answers_and_counts_as_before(mlp_cpu, pool):
     assert s1["h2d_pageable_bytes"] - s0["h2d_pageable_bytes"] == (
         0 if pool else sum(r.nbytes for r in reqs))
     assert s1["h2d_staged_bytes"] == s0["h2d_staged_bytes"] == 0
-    assert srv._stage._slots == []
+    assert s1["batches_dispatched"] > s0["batches_dispatched"]
+    assert s1["chunks_direct"] == s0["chunks_direct"] == 0
+    assert srv._stage._slots == srv._back._slots == []
     peg = PegasusServer(banks, backend="kernel", device="cpu", max_batch=64)
     got = peg.serve([InferRequest("", r) for r in reqs])
     np.testing.assert_array_equal(np.concatenate([o.output for o in got]), want)
     assert peg._stage._slots == []
+
+
+class _CallLog:
+    """Every output ``ExecutionPlan.__call__`` returns, kept alive; a call
+    of ``call_into`` fails the test."""
+
+    def __init__(self, monkeypatch):
+        self.outs: list = []
+        call = ExecutionPlan.__call__
+
+        def logged(plan, *a, **kw):
+            y = call(plan, *a, **kw)
+            self.outs.append(y)
+            return y
+
+        def refused(plan, *a, **kw):
+            raise AssertionError("call_into is the direct path's")
+
+        monkeypatch.setattr(ExecutionPlan, "__call__", logged)
+        monkeypatch.setattr(ExecutionPlan, "call_into", refused)
+
+    def fresh(self) -> bool:
+        """Each output is a tensor of its own: no two share memory."""
+        ptrs = [y.untyped_storage().data_ptr() for y in self.outs]
+        return len(self.outs) > 1 and len(set(ptrs)) == len(ptrs)
+
+
+OFF_PATH = ["infer", "pool", "sharded", "jit=False", "serve"]
+
+
+def _off_path(where, banks, reqs, dev):
+    """Serve ``reqs`` one way that keeps to ``plan(*inputs)``; returns the
+    outputs in request order, and the server's direct chunks (None where
+    it keeps no count)."""
+    kw = dict(backend="kernel", max_batch=64)
+    if where in ("sharded", "jit=False"):
+        srv = PegasusServer(banks, device=dev, devices=(dev, dev) if where == "sharded" else None,
+                            **kw)
+        got = srv.serve([InferRequest("", r) for r in reqs], jit=where != "jit=False")
+        return [o.output for o in got], None
+    srv = MultiModelServer(device=dev, devices=[dev, dev] if where == "pool" else None, **kw)
+    try:
+        srv.add_model("m", banks)
+        if where == "infer":
+            outs = [srv.infer(InferRequest("m", r)).output.cpu().numpy() for r in reqs]
+        else:
+            outs = [o.output for o in srv.serve([InferRequest("m", r) for r in reqs])]
+        return outs, srv.stats()["serving"]["chunks_direct"]
+    finally:
+        srv.close()
+
+
+@pytest.mark.parametrize("where", OFF_PATH)
+def test_off_the_direct_path_each_plan_call_returns_a_fresh_tensor(mlp_cpu, where, monkeypatch):
+    """``infer()``, the stream pool, a sharded plan, ``jit=False`` and a
+    CPU plan keep ``plan(*inputs)``: each call returns a tensor of its
+    own, ``call_into`` is never called, and the answers are the plan's."""
+    banks, x = mlp_cpu
+    reqs = _sizes_reqs(x, (1, 3, 64, 70, 130))
+    want = build_plan(banks, backend="kernel", device="cpu")(np.concatenate(reqs)).numpy()
+    log = _CallLog(monkeypatch)
+    outs, direct = _off_path(where, banks, reqs, "cpu")
+    np.testing.assert_array_equal(np.concatenate(outs), want)
+    assert log.fresh() and direct in (None, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +351,9 @@ def card():
 
 
 def _model(family):
-    """MLP-B (one input) or CNN-L (sequence and payload bytes), trained a
-    few steps on the card and pegasusified at tiny depth, with host inputs;
-    built once."""
+    """MLP-B (one input), the RNN or CNN-L (sequence and payload bytes),
+    trained a few steps on the card and pegasusified at tiny depth, with
+    host inputs; built once."""
     if family not in _MODELS:
         root = pathlib.Path(__file__).resolve().parents[1]
         spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
@@ -395,3 +487,108 @@ def test_a_round_larger_than_the_buffer_grows_it(card):
     assert s1["h2d_pageable_bytes"] == s0["h2d_pageable_bytes"]
     for a, b in zip(outs, unstaged):
         np.testing.assert_array_equal(a, b)
+
+
+# the direct path: each group's requests, one group a round
+DIRECT_CASES = {
+    "three full chunks and a padded tail": [(4096, 1, 4095, 2000, 2096, 1000)],
+    "one padded chunk": [(3, 997)],
+    "two rounds begun two deep": [(4096, 3, 997), (500, 500)],
+}
+PADDED = 1000                       # each case's last chunk: 1,000 rows of a 1,024 bucket
+HOLD_CYCLES = 400_000_000           # a few hundred ms of the stream held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DIRECT_CASES))
+@pytest.mark.parametrize("family", ["mlp", "rnn", "cnn_l"])
+def test_each_chunk_crosses_the_plan_boundary_once_each_way(card, family, case):
+    """Groups begun while the stream is held, so that every copy is still
+    in flight when the host looks: the answers are the plan's on each
+    request, bit for bit; the static inputs' padded rows read zero though
+    a full chunk filled them before; an input slot whose copies are in
+    flight is released but not handed out again; every chunk is counted
+    direct; and a group whose last chunk raises leaves neither slot busy,
+    its requests served on the retry."""
+    model, inputs = _model(family)
+    groups = [_requests(inputs, sizes, shift=17 * i) for i, sizes in enumerate(DIRECT_CASES[case])]
+    srv = MultiModelServer(backend="kernel", device=CUDA, quantum=16384)
+    plan = srv.add_model(family, model)
+    for reqs in groups:                                 # capture every bucket used
+        _serve(srv, family, reqs)
+    assert bucket_batch(PADDED) == 1024
+    _serve(srv, family, _requests(inputs, (1024,), shift=5))     # fill the padded rows
+    static = [g for k, g in plan._graphs.items() if k[1] == 1024]
+    assert len(static) == 1
+    torch.cuda.synchronize()
+    assert any(buf[PADDED:].any() for buf in static[0].inputs)
+    taken = []
+    take = srv._stage.take
+    srv._stage.take = lambda device: taken.append(take(device)) or taken[-1]
+    s0 = srv.stats()["serving"]
+    torch.cuda._sleep(HOLD_CYCLES)
+    begun = []
+    for reqs in groups:
+        for r in reqs:
+            srv.submit(InferRequest(family, r))
+        (name, pulled), = srv._sched.pull_round(16384)
+        begun.append(srv._begin_group(name, pulled, None))
+        assert begun[-1].error is None
+    # released with their copies still queued behind the held stream
+    assert len({id(s) for s in taken}) == len(taken) == len(groups)
+    assert not any(s.busy or s.event.query() for s in taken)
+    other = take(CUDA)
+    assert all(other is not s for s in taken)
+    srv._stage._hand_back(other)
+    got = [srv._finish_group(g) for g in begun]
+    torch.cuda.synchronize()            # before any plan call below replays the graph
+    assert not any(buf[PADDED:].any() for buf in static[0].inputs)
+    s1 = srv.stats()["serving"]
+    chunks = sum(len(bucket_chunks(sum(sizes))) for sizes in DIRECT_CASES[case])
+    assert s1["chunks_direct"] - s0["chunks_direct"] == chunks
+    assert s1["batches_dispatched"] - s0["batches_dispatched"] == chunks
+    for outs, reqs in zip(got, groups):
+        for o, r in zip(outs, reqs):
+            want = plan(*(torch.as_tensor(a, device=CUDA) for a in r)).cpu().numpy()
+            np.testing.assert_array_equal(o, want)
+    assert not any(s.busy for s in srv._stage._slots + srv._back._slots)
+
+    # the last chunk of the first group raises before its plan call
+    n_chunks, calls = len(bucket_chunks(sum(DIRECT_CASES[case][0]))), [0]
+    call_into = plan.call_into
+
+    def failing(*a, **kw):
+        calls[0] += 1
+        if calls[0] == n_chunks:
+            raise RuntimeError("a failing chunk")
+        return call_into(*a, **kw)
+
+    plan.call_into = failing
+    for r in groups[0]:
+        srv.submit(InferRequest(family, r))
+    (name, pulled), = srv._sched.pull_round(16384)
+    g = srv._begin_group(name, pulled, None)
+    assert isinstance(g.error, RuntimeError)
+    assert not any(s.busy for s in srv._stage._slots + srv._back._slots)
+    srv._finish_group(g)                                # back in the queue
+    del plan.call_into
+    outs = srv.drain()[family]
+    for o, r in zip(outs, groups[0]):
+        np.testing.assert_array_equal(
+            o, plan(*(torch.as_tensor(a, device=CUDA) for a in r)).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", [w for w in OFF_PATH if w != "serve"])
+def test_off_the_direct_path_on_the_card_each_plan_call_returns_a_fresh_tensor(
+        card, where, monkeypatch):
+    """On the card too, ``infer()``, the stream pool, a sharded plan and
+    ``jit=False`` keep ``plan(*inputs)`` and its fresh tensor a call."""
+    model, inputs = _model("mlp")
+    reqs = [r[0] for r in _requests(inputs, (1, 3, 64, 70, 130))]
+    want = build_plan(model, backend="kernel", device=CUDA)(
+        torch.as_tensor(np.concatenate(reqs), device=CUDA)).cpu().numpy()
+    log = _CallLog(monkeypatch)
+    outs, direct = _off_path(where, model, reqs, CUDA)
+    np.testing.assert_array_equal(np.concatenate(outs), want)
+    assert log.fresh() and direct in (None, 0)
