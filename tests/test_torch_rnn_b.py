@@ -43,13 +43,12 @@ def _rnn(seed=0, depth=4, classes=3) -> PegasusRNN:
         out_bank=_bank(gen, HIDDEN, classes, depth, -1.5, 1.5, True), window=WINDOW)
 
 
-def _plain_bank(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
+def _leaves(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
     """Descend each tree from the root (right iff the value exceeds the
-    node's threshold), then sum the leaves' table rows in ascending k and
-    add the bias."""
+    node's threshold): the leaf ``[rows, K]`` each row reaches."""
     k, n_int = p.trees.thresholds.shape
-    node = torch.zeros((x.shape[0], k), dtype=torch.long)
-    rows = torch.arange(k)
+    node = torch.zeros((x.shape[0], k), dtype=torch.long, device=x.device)
+    rows = torch.arange(k, device=x.device)
     while True:
         inner = node < n_int
         if not inner.any():
@@ -59,8 +58,14 @@ def _plain_bank(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
                            p.trees.features.long()[rows, at].unsqueeze(-1)).squeeze(-1)
         node = torch.where(inner, 2 * node + 1 + (val > p.trees.thresholds[rows, at]).long(),
                            node)
-    leaf = node - n_int
-    y = torch.zeros((x.shape[0], p.lut.shape[2]))
+    return node - n_int
+
+
+def _plain_bank(p: PegasusLinear, x: torch.Tensor) -> torch.Tensor:
+    """The leaves' table rows summed in ascending k, then the bias."""
+    k = p.lut.shape[0]
+    leaf = _leaves(p, x)
+    y = torch.zeros((x.shape[0], p.lut.shape[2]), device=x.device)
     for j in range(k):
         y = y + p.lut[j, leaf[:, j]]
     return y if p.bias is None else y + p.bias
