@@ -59,9 +59,9 @@ Phases (any failure exits nonzero; none is caught and passed over):
      printed); its PGA103 rows per block and shared bytes equal
      ``f32_launch_shape`` / ``launch_shape`` of the plan's own operands at
      the rows a 4096-flow batch gives each step, on the card's SM count;
-     PGA104 flags exactly the int8 plans with byte-wise column tiles. Phase
-     7's refined MLP-B and the AE banks compiled to MAT pipelines (Table 6
-     rows); MLP-B's integer pipeline run on the card (``run_batch``) over
+     PGA104 flags exactly the int8 plans with byte-wise column tiles (none:
+     ``plan_q8`` stages a LUT by bulk copies only). Phase 7's refined MLP-B
+     and the AE banks compiled to MAT pipelines (Table 6 rows); MLP-B's integer pipeline run on the card (``run_batch``) over
      the test split and the 32,768-flow tiling — equal to ``run_packet`` on
      the CPU on 256 flows, its flows/s, its argmax agreement with the
      served ``kernel`` outputs and its macro-F1 beside theirs — and the AE

@@ -24,15 +24,19 @@ CUDA graph, and proves (or refutes) the invariants below:
   priced against ``SMEM_PER_BLOCK``. A planner that refuses the geometry,
   or bytes over the budget, is an error; otherwise the bytes, rows, ring
   slots, stages, fills and each layer's routes (trees in shared memory or
-  through L1; the int8 LUT as whole rows, column tiles or through L1) are
-  an info note. There is no margin warning: ``plan_q8`` sizes its two ring
-  slots to fill the block, so every int8 launch sits within 1% of it.
+  through L1; the int8 LUT as whole rows, column tiles or through L1:
+  ``plan_q8`` stages a LUT only where bulk copies bring all of it, so
+  rnn-h, the CNN-B heads' and the AE's K = 24 layers read theirs through
+  L1) are an info note. There is no margin warning: ``plan_q8`` sizes its
+  two ring slots to fill the block, so every int8 launch sits within 1% of
+  it.
 * **PGA104** — the bulk-copy rule: an int8 column tile whose LUT row
   segments are no multiple of 16 bytes (or not 16-byte aligned) cannot go
-  by bulk async copy, and one warp copies it a byte at a time — a warning
-  with the byte counts. Smaller parts outside a stage's bulk mask (a
-  12-byte bias, a 12-byte scale row) are copied cooperatively: an info
-  note. The TPU's batch-tile and MXU-lane checks have no counterpart: on
+  by bulk async copy, and one warp would copy it a byte at a time — a
+  warning with the byte counts. ``plan_q8`` emits no such tile (it reads
+  that LUT through L1), so the warning guards the planner. Smaller parts
+  outside a stage's bulk mask (a 12-byte bias, a 12-byte scale row, trees
+  of 2,040 B) are copied cooperatively: an info note. The TPU's batch-tile and MXU-lane checks have no counterpart: on
   CUDA one warp takes one row and there is no matrix unit in the path.
 * **PGA105** — fusion-rejection explanations: why each adjacent chained
   bank pair is NOT inside one :class:`FusedBankStack` (v/C mismatch,

@@ -19,9 +19,11 @@
 //     complete_tx) that complete on the slot's `full` mbarrier, or with a
 //     cooperative copy where a part's address or size is not a multiple of
 //     16 bytes. Fill f+1 is in flight while fill f computes; a slot is
-//     refilled once every warp has arrived on its `empty` mbarrier. A layer
-//     too wide for any tile reads its trees or LUT through L1 instead, with
-//     the same warp mapping. The stage table is in shared memory too.
+//     refilled once every warp has arrived on its `empty` mbarrier. Trees
+//     too wide for a slot, and a LUT that no bulk copy can stage (the
+//     planner stages a LUT only by bulk copies), are read through L1
+//     instead, with the same warp mapping. The stage table is in shared
+//     memory too.
 //   * Persistent and layer-outer. About one block per SM; each block owns
 //     chunks of `rows` batch rows, keeps their activations h[rows, width]
 //     and leaves in shared memory, and walks the stages (layers) in its

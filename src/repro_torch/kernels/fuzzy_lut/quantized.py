@@ -140,11 +140,13 @@ def plan_q8(ks: tuple[int, ...], v: int, depth: int, kmax: int, nmax: int,
     their own, so the descent overlaps the LUT's copy (where they do not
     fit a slot, the descent reads them from global memory), then the LUT
     with the scales and bias: whole ``Nmax``-wide rows where they fit a
-    slot, else column tiles of a multiple of 16 columns, else (not even 16
-    columns fit) one stage that reads the LUT from global memory. Raises
-    ``ValueError`` when one row's activations and leaves do not fit. The
-    ring's slots share the block's shared memory with the rows and the
-    stage table.
+    slot and go by one bulk copy, else column tiles of a multiple of 16
+    columns where every row segment goes by bulk copy (the width, ``Nmax``
+    and the LUT's address multiples of 16 bytes), else one stage of scales
+    and bias whose columns read the LUT through L1: no LUT is copied into a
+    slot cooperatively. Raises ``ValueError`` when one row's activations
+    and leaves do not fit. The ring's slots share the block's shared memory
+    with the rows and the stage table.
     """
     nl = len(ks)
     width = _pad(max([ks[0] * v] + [ks[l + 1] * v for l in range(nl - 1)]), 4)
@@ -195,22 +197,23 @@ def _layer_stages(ks, v, depth, kmax, nmax, n_out, has_bias, align, cap):
                     (B_BIAS, 4 * nt if has_bias else 0, a_bias + 4 * (l * nmax + n0)),
                     (B_LUT, lut_bytes, lut_mod, lut_room)]
 
-        # the LUT: whole rows, column tiles of nt columns, or global memory
-        room = cap - _pad(4 * k) - BULK_ALIGN
-        nt_max = room // (k * c + 4)
-        if _pack(gather_parts(0, n_eff, k * c * nmax, lut_src))[1] <= cap:
-            lut_stages = [(GATHER | LUT | FULLROW, gather_parts(0, n_eff, k * c * nmax, lut_src),
-                           0, n_eff, nmax)]
+        # the LUT: whole rows, or column tiles of nt columns, where every
+        # part of it goes by bulk copy; else through L1 (copied by one warp,
+        # each block would bring the whole table for the few rows it reads)
+        whole = gather_parts(0, n_eff, k * c * nmax, lut_src)
+        _, whole_bytes, whole_bulk, _ = _pack(whole)
+        nt_max = (cap - _pad(4 * k) - BULK_ALIGN) // (k * c + 4)
+        nt_max -= nt_max % BULK_ALIGN
+        if whole_bytes <= cap and whole_bulk & B_LUT:
+            lut_stages = [(GATHER | LUT | FULLROW, whole, 0, n_eff, nmax)]
             lpitch = nmax
-        elif nt_max >= min(n_eff, BULK_ALIGN):
-            nt = n_eff if nt_max >= n_eff else nt_max - nt_max % BULK_ALIGN
+        elif nt_max and all(n % BULK_ALIGN == 0 for n in (n_eff, nmax, lut_src)):
+            nt = min(n_eff, nt_max)
             lut_stages = []
             for n0 in range(0, n_eff, nt):
                 w = min(nt, n_eff - n0)
-                segs_ok = (w % BULK_ALIGN == 0 and nt % BULK_ALIGN == 0
-                           and nmax % BULK_ALIGN == 0 and (lut_src + n0) % BULK_ALIGN == 0)
-                # k*c rows of w bytes land nt bytes apart
-                parts = gather_parts(n0, w, k * c * w, 0 if segs_ok else 1, k * c * nt)
+                # k*c row segments of w bytes land nt bytes apart
+                parts = gather_parts(n0, w, k * c * w, 0, k * c * nt)
                 lut_stages.append((GATHER | LUT, parts, n0, w, nt))
             lpitch = nt
         else:

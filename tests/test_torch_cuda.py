@@ -122,7 +122,8 @@ def _stack(rng, t, ks, v, depth, nmax, n_out, dev):
 
 def _offset_view(t):
     """``t``'s values in a tensor whose address is 1 element past a 16-byte
-    boundary: every part of it is staged by the cooperative copy."""
+    boundary: no bulk copy can stage it, so the int8 kernel copies its trees
+    and scales cooperatively and reads its LUT through L1."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = buf[1:].view(t.shape)
     view.copy_(t)
@@ -232,12 +233,15 @@ FAMILY_STACKS = {"cnn-b-heads": dict(t=4096, ks=(16, 24), v=1, depth=8, nmax=24,
                  "ae": dict(t=4096, ks=(24, 12, 3, 12), v=1, depth=8, nmax=24, n_out=24)}
 
 
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
 @pytest.mark.parametrize("name", sorted(FAMILY_BANKS))
-def test_family_bank_kernels_bit_equal(dev, name):
+def test_family_bank_kernels_bit_equal(dev, name, offset):
     """Both per-bank kernels at a family's geometry: leaves exact, outputs
     bit-equal to the plain versions."""
     x, f, th, lut = _bank(np.random.default_rng(len(name)), *FAMILY_BANKS[name], dev)
     q, s = Q.quantize_lut_int8(lut)
+    if offset:
+        f, th, lut, q, s = (_offset_view(a) for a in (f, th, lut, q, s))
     for run, plain in ((lambda: K.fuzzy_lut(x, f, th, lut, return_leaves=True),
                         lambda: K.fuzzy_lut_plain(x, f, th, lut)),
                        (lambda: Q.fuzzy_lut_q8(x, f, th, q, s, return_leaves=True),
@@ -249,14 +253,17 @@ def test_family_bank_kernels_bit_equal(dev, name):
         assert torch.equal(y, wy), name
 
 
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
 @pytest.mark.parametrize("name", sorted(FAMILY_STACKS))
-def test_family_stack_kernels_bit_equal(dev, name):
+def test_family_stack_kernels_bit_equal(dev, name, offset):
     geom = FAMILY_STACKS[name]
     ks, n_out = geom["ks"], geom["n_out"]
     x, f, th, lt, b = _stack(np.random.default_rng(len(name)), dev=dev, **geom)
     nl, kmax, c, nmax = lt.shape
     q, s = Q.quantize_lut_int8(lt.reshape(nl * kmax, c, nmax))
     q, s = q.reshape(lt.shape).contiguous(), s.reshape(nl, kmax).contiguous()
+    if offset:
+        f, th, lt, b, q, s = (_offset_view(a) for a in (f, th, lt, b, q, s))
     y, lv = K.fuzzy_lut_stack(x, f, th, lt, b, ks=ks, n_out=n_out, return_leaves=True)
     wy, wl = K.fuzzy_lut_stack_plain(x, f, th, lt, b, ks, n_out)
     assert torch.equal(lv.long(), wl) and torch.equal(y, wy), name

@@ -240,8 +240,9 @@ def test_run_batch_defaults_to_the_card():
 def test_chip_smoke_phase8_rehearsal():
     """chip_smoke.py's phase 8 in process at tiny size on the CPU: every
     plan of phases 4-7 audited at build with the planners' numbers, PGA104
-    on exactly the byte-wise int8 column tiles (the CNN-B heads at this
-    size), and the integer pipelines equal to run_packet."""
+    on exactly the byte-wise int8 column tiles (none: the CNN-B heads' K =
+    24 layer reads its LUT through L1), and the integer pipelines equal to
+    run_packet."""
     import importlib.util
     import pathlib
 
@@ -256,7 +257,7 @@ def test_chip_smoke_phase8_rehearsal():
                                      cnn_m_steps=3)
     audit = smoke.audit_phase(res, fams, multi, refined, CPU, "the CPU")
     assert audit["plans"] == len(audit["seconds"]) >= 40
-    assert audit["flagged"] == [("stack[0]=banks[1:3]", ("stack", 16, 24))]
+    assert audit["flagged"] == []
     out = smoke.dataplane_phase(res, fams, refined, CPU, "the CPU")
     assert out["MLP-B (refined)"]["report"].stateful_bits_per_flow == 80
     assert out["AE"]["report"].validate() == []

@@ -276,6 +276,10 @@ def _check_q8_plan(plan, ks, v, n_out, depth, nmax):
         n_eff = n_out if l == len(ks) - 1 else ks[l + 1] * v
         assert stages[0].flags & Q.DESCENT
         assert sum(bool(s.flags & Q.DESCENT) for s in stages) == 1
+        # a LUT is staged by bulk copies only, else read through L1 (lpitch 0)
+        assert all(s.bulk & Q.B_LUT for s in stages if s.flags & Q.LUT)
+        staged = any(s.flags & Q.LUT for s in stages)
+        assert all(bool(s.lpitch) == staged for s in stages)
         cols = [(s.n0, s.nt) for s in stages if s.flags & Q.GATHER]
         covered = [n for n0, nt in cols for n in range(n0, n0 + nt)]
         assert covered == list(range(n_eff))
@@ -303,21 +307,28 @@ def test_q8_plan_stages_mlp_b_layers_whole():
         assert [s.flags for s in bank.stages] == [trees, whole]
 
 
-@pytest.mark.parametrize("geom", [((16,), 2, 6, 16, 2048, 2048, False),
-                                  ((16, 16), 2, 6, 16, 1024, 1024, True),
-                                  ((40, 100, 30), 4, 7, 100, 400, 333, True)],
+@pytest.mark.parametrize("geom", [((16,), 2, 6, 16, 2048, 2048, False, True),
+                                  ((16, 16), 2, 6, 16, 1024, 1024, True, True),
+                                  ((40, 100, 30), 4, 7, 100, 400, 333, True, False)],
                          ids=["bank-2048", "stack-1024", "ragged"])
 def test_q8_plan_tiles_cover_columns_within_a_slot(geom):
-    ks, v, depth, kmax, nmax, n_out, has_bias = geom
+    """Column tiles where each row segment goes by bulk copy; the ragged
+    stack's last layer (333 columns, no multiple of 16) reads its LUT
+    through L1 instead, its trees still staged."""
+    ks, v, depth, kmax, nmax, n_out, has_bias, tiled = geom
     plan = Q.plan_q8(ks, v, depth, kmax, nmax, n_out, has_bias=has_bias)
     by_layer = _check_q8_plan(plan, ks, v, n_out, depth, nmax)
     last = by_layer[len(ks) - 1]
-    assert len(last) > 2                       # a trees stage and column tiles
     assert last[0].flags == Q.DESCENT | Q.TREES
+    if not tiled:
+        assert [s.flags for s in last] == [Q.DESCENT | Q.TREES, Q.GATHER]
+        assert (last[1].n0, last[1].nt, last[1].lpitch) == (0, n_out, 0)
+        return
+    assert len(last) > 2                       # a trees stage and column tiles
     tiles = [s for s in last if s.flags & Q.GATHER]
     assert all(s.flags & Q.LUT and not s.flags & Q.FULLROW for s in tiles)
     assert all(s.pitch == tiles[0].nt == s.lpitch for s in tiles)
-    assert all(s.nt % 16 == 0 for s in tiles[:-1])
+    assert all(s.nt % 16 == 0 and s.bulk & Q.B_LUT for s in tiles)
 
 
 def test_q8_plan_bulk_copy_needs_16_byte_addresses_and_sizes():
@@ -325,23 +336,84 @@ def test_q8_plan_bulk_copy_needs_16_byte_addresses_and_sizes():
     t, s = Q.plan_q8((16,), 2, 6, 16, 32, 32, has_bias=False).stages
     assert (t.bulk, s.bulk) == (Q.B_FEAT | Q.B_THR, Q.B_SCALE | Q.B_LUT)
     assert t.tx == t.nbytes and s.tx == s.nbytes
-    # a table 4 bytes past a 16-byte boundary: that part is copied by the warp
-    s = Q.plan_q8((16,), 2, 6, 16, 32, 32, has_bias=False,
-                  align=(0, 0, 0, 0, 4)).stages[1]
+    # a table 4 bytes past a 16-byte boundary: no bulk copy stages it, so it
+    # is read through L1; the scales still go by bulk copy
+    t, s = Q.plan_q8((16,), 2, 6, 16, 32, 32, has_bias=False,
+                     align=(0, 0, 0, 0, 4)).stages
+    assert (t.flags, s.flags, t.lpitch, s.lpitch) == (Q.DESCENT | Q.TREES, Q.GATHER, 0, 0)
     assert s.bulk == Q.B_SCALE
-    assert s.tx == s.nbytes - 16 * 64 * 32
+    assert s.tx == s.nbytes == 4 * 16
     # C=2 trees (one node, 12 bytes for K=3) and 3 scales: nothing is a
     # multiple of 16, as in the T=1 / K=3 / d=1 / N=1 card test
     stages = Q.plan_q8((3,), 2, 1, 3, 1, 1, has_bias=False).stages
     assert all(s.bulk == 0 and s.tx == 0 for s in stages)
     # column tiles: bulk row segments only where Nmax, the tile's first
-    # column and its width are multiples of 16
-    tiles = [t for t in Q.plan_q8((16,), 2, 6, 16, 2048, 2040, has_bias=False).stages
-             if t.flags & Q.GATHER]
-    assert all(t.bulk & Q.B_LUT for t in tiles[:-1])
-    assert not tiles[-1].bulk & Q.B_LUT        # last tile is 2040 mod 96 = 24 wide
-    assert not any(t.bulk & Q.B_LUT for t in Q.plan_q8(
-        (16,), 2, 6, 16, 2047, 2047, has_bias=False).stages)
+    # column and its width are multiples of 16; where one tile's are not
+    # (2040 mod 96 = 24 wide last tile; Nmax 2047), the layer's LUT is read
+    # through L1 and no tile is staged
+    assert all(t.bulk & Q.B_LUT for t in Q.plan_q8(
+        (16,), 2, 6, 16, 2048, 2048, has_bias=False).stages if t.flags & Q.GATHER)
+    for nmax, n in ((2048, 2040), (2047, 2047)):
+        t, s = Q.plan_q8((16,), 2, 6, 16, nmax, n, has_bias=False).stages
+        assert (t.flags, s.flags, s.nt, s.lpitch) == (Q.DESCENT | Q.TREES, Q.GATHER, n, 0)
+
+
+def test_q8_plan_reads_the_rnn_h_lut_through_l1():
+    """rnn-h (K = 24, depth 8, N = 24): its 147,456 B LUT fits no slot, and
+    24 columns tile into no 16-byte row segments, so no bulk copy can stage
+    it. Its trees go by bulk copy; one GATHER stage brings the scales, and
+    the leaves' LUT rows are read through L1."""
+    plan = Q.plan_q8((24,), 1, 8, 24, 24, 24, has_bias=False)
+    _check_q8_plan(plan, (24,), 1, 24, 8, 24)
+    trees, gather = plan.stages
+    assert (trees.flags, trees.bulk, trees.tx) == (Q.DESCENT | Q.TREES, Q.B_FEAT | Q.B_THR,
+                                                   2 * 4 * 24 * 255)
+    assert (gather.flags, gather.bulk, gather.tx) == (Q.GATHER, Q.B_SCALE, 4 * 24)
+    assert (gather.n0, gather.nt, gather.pitch) == (0, 24, 0)
+    assert trees.lpitch == gather.lpitch == 0
+
+
+@pytest.mark.parametrize("geom,l1", [(((16, 24), 1, 8, 24, 24, 3), 1),
+                                     (((24, 12, 3, 12), 1, 8, 24, 24, 24), 0)],
+                         ids=["cnn-b-heads", "ae"])
+def test_q8_plan_stacks_read_only_the_k24_lut_through_l1(geom, l1):
+    """The CNN-B head pair and the AE stack: the K = 24 layer reads its LUT
+    through L1; every other layer keeps its whole-row bulk-copied stage."""
+    ks, v, depth, kmax, nmax, n_out = geom
+    plan = Q.plan_q8(ks, v, depth, kmax, nmax, n_out, has_bias=True)
+    by_layer = _check_q8_plan(plan, ks, v, n_out, depth, nmax)
+    for l, stages in by_layer.items():
+        assert stages[0].flags == Q.DESCENT | Q.TREES
+        if l == l1:
+            assert [s.flags for s in stages[1:]] == [Q.GATHER]
+            assert stages[1].bulk & Q.B_SCALE and stages[0].lpitch == 0
+        else:
+            assert [s.flags for s in stages[1:]] == [Q.GATHER | Q.LUT | Q.FULLROW]
+            assert stages[1].bulk & Q.B_LUT and stages[0].lpitch == nmax
+
+
+_TREES, _WHOLE = Q.DESCENT | Q.TREES, Q.GATHER | Q.LUT | Q.FULLROW
+_FT, _SL, _SBL = Q.B_FEAT | Q.B_THR, Q.B_SCALE | Q.B_LUT, Q.B_SCALE | Q.B_BIAS | Q.B_LUT
+
+
+@pytest.mark.parametrize("geom,want", [
+    (((8, 16, 16, 16), 2, 6, 16, 32, 3, True),
+     [(_TREES, _FT, 4032), (_WHOLE, _SBL, 16544), (_TREES, _FT, 8064), (_WHOLE, _SBL, 32960),
+      (_TREES, _FT, 8064), (_WHOLE, _SBL, 32960), (_TREES, _FT, 8064), (_WHOLE, _SL, 32832)]),
+    (((8,), 2, 6, 8, 32, 32, False), [(_TREES, _FT, 4032), (_WHOLE, _SL, 16416)]),
+    (((16,), 2, 6, 16, 32, 32, False), [(_TREES, _FT, 8064), (_WHOLE, _SL, 32832)]),
+    (((16,), 2, 6, 16, 3, 3, False), [(_TREES, _FT, 8064), (_WHOLE, _SL, 3136)]),
+    (((2,), 1, 8, 2, 24, 24, False), [(_TREES, 0, 0), (_WHOLE, Q.B_LUT, 12288)]),
+    (((24,), 1, 8, 24, 3, 3, False), [(_TREES, _FT, 48960), (_WHOLE, _SL, 18528)]),
+], ids=["mlp-b-stack", "mlp-b-bank8", "mlp-b-bank16", "mlp-b-bank16x3", "rnn-x", "rnn-out"])
+def test_q8_plan_keeps_whole_rows_that_go_by_bulk_copy(geom, want):
+    """MLP-B's stack and banks, rnn-x and rnn-out stage whole LUT rows by one
+    bulk copy: (flags, bulk mask, bulk bytes) of each stage. rnn-x's trees
+    (2,040 B) are copied cooperatively, a LUT never."""
+    ks, v, depth, kmax, nmax, n_out, has_bias = geom
+    plan = Q.plan_q8(ks, v, depth, kmax, nmax, n_out, has_bias=has_bias)
+    _check_q8_plan(plan, ks, v, n_out, depth, nmax)
+    assert [(s.flags, s.bulk, s.tx) for s in plan.stages] == want
 
 
 def test_q8_plan_reads_through_l1_where_no_tile_fits():

@@ -132,14 +132,17 @@ def test_module_cli_exit_codes():
     assert "0 unsuppressed findings" in good.stdout
 
 
-@pytest.mark.parametrize("families,suppress,code", [
-    ("mlp", "", 0),             # no finding above info
-    ("cnn", "", 1),             # the CNN-B heads' byte-wise int8 column tile (PGA104)
-    ("cnn", "PGA104", 0),
-])
-def test_plan_cli_exit_codes(families, suppress, code, capsys, tmp_path):
+@pytest.mark.parametrize("families,budget,suppress,code", [
+    ("mlp", None, "", 0),       # no finding above info
+    ("cnn", None, "", 0),       # none either: the CNN-B heads' K = 24 LUT is read through L1
+    ("cnn", 1024, "", 1),       # launches over a 1 KB shared-memory budget (PGA103 errors)
+    ("cnn", 1024, "PGA103", 0),
+], ids=["mlp--0", "cnn--0", "cnn-1024--1", "cnn-1024-PGA103-0"])
+def test_plan_cli_exit_codes(families, budget, suppress, code, capsys, tmp_path):
     argv = ["--families", families, "--backends", "kernel_q8", "--device", "cpu",
             "--steps", "2", "--out", str(tmp_path / "audit.json")]
+    if budget:
+        argv += ["--smem-budget", str(budget)]
     if suppress:
         argv += ["--suppress", suppress]
     assert planaudit.main(argv) == code

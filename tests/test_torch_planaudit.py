@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch_threads  # noqa: F401  (this worker's share of the cores)
 
+import dataclasses
 import json
 import warnings
 
@@ -37,6 +38,7 @@ from repro_torch.kernels.fuzzy_lut import _lib, ops
 from repro_torch.kernels.fuzzy_lut import quantized as Q
 from repro_torch.kernels.fuzzy_lut.kernel import (SMEM_PER_BLOCK, f32_launch_shape,
                                                   plan_f32)
+from test_torch_rnn_b import _rnn
 
 FAMILIES = ("mlp", "rnn", "cnn", "cnn_l", "ae")
 CARRIED_RULES = ("PGA101", "PGA102", "PGA105", "PGA106")
@@ -196,10 +198,12 @@ def _bytewise_tiles(qp: Q.Q8Plan) -> list:
 
 
 @pytest.mark.parametrize("name,fuse,flagged,tiles", [
-    ("rnn-h", True, True, 2), ("cnn-b heads", True, True, 1), ("ae", True, True, 1),
+    ("rnn-h", True, False, 0), ("cnn-b heads", True, False, 0), ("ae", True, False, 0),
     ("mlp-b", True, False, 0), ("mlp-b", False, False, 0),
 ])
 def test_pga104_flags_the_slow_int8_launches(published, name, fuse, flagged, tiles):
+    """No int8 plan copies a LUT tile byte by byte: rnn-h, the CNN-B heads'
+    K = 24 layer and the AE's read theirs through L1, so none is flagged."""
     plan = build_plan(published[name], backend="kernel_q8", fuse=fuse, device="cpu",
                       audit="off")
     rep = audit_plan(plan)
@@ -219,6 +223,21 @@ def test_pga104_flags_the_slow_int8_launches(published, name, fuse, flagged, til
         if f.rule == "PGA103":
             assert f.severity == "info"
             assert f.metrics["q8"]["smem_bytes"] <= SMEM_PER_BLOCK
+
+
+def test_pga103_lists_the_rnn_h_lut_through_l1():
+    """RNN-B on ``kernel_q8`` at its published widths (depth 8, hidden 24):
+    PGA103 lists the 7 h-banks' LUT route as "L1" and the x- and out-banks'
+    as whole rows, trees in shared memory everywhere; PGA104 warns of none."""
+    plan = build_plan(_rnn(depth=8), backend="kernel_q8", device="cpu", audit="off")
+    rep = audit_plan(plan)
+    routes = {f.site: f.metrics["q8"]["layers"] for f in rep.findings if f.rule == "PGA103"}
+    assert len(routes) == len(plan.banks) == 16
+    for i, bank in enumerate(plan.banks):
+        h_bank = (bank.layer.num_groups, bank.layer.out_features) == (24, 24)
+        assert routes[f"bank[{i}]"] == [{"trees": "shared", "lut": "L1" if h_bank else "rows"}]
+    assert sum(r == [{"trees": "shared", "lut": "L1"}] for r in routes.values()) == 7
+    assert not [f for f in rep.findings if f.rule == "PGA104" and f.severity == "warning"]
 
 
 def test_pga104_cooperative_parts_are_an_info_note(published):
@@ -348,9 +367,10 @@ def test_registry_audit_kwarg_and_lazy_report():
 
 def test_suppress_and_report_shape(published):
     plan = build_plan(published["rnn-h"], device="cpu", audit="off")
-    rep = audit_plan(plan, AuditConfig(suppress=("PGA104",)))
-    assert rep.ok and not [f for f in rep.findings if f.rule == "PGA104"]
-    rep = audit_plan(plan)
+    loud = AuditConfig(overflow_margin=1e12)          # PGA101 warns on the bank
+    rep = audit_plan(plan, dataclasses.replace(loud, suppress=("PGA101",)))
+    assert rep.ok and not [f for f in rep.findings if f.rule == "PGA101"]
+    rep = audit_plan(plan, loud)
     doc = rep.to_dict()
     assert doc["counts"]["warning"] == 1 and doc["ok"] is False
     assert doc["summary"]["family"] == "sequential"
