@@ -381,17 +381,19 @@ class _Graph:
     """One captured forward at a ``(backend, bucket)`` on one device and
     stream: the graph, its plan-owned static input and output buffers, the
     port's kernel launches one replay makes, the kernel nodes it holds (the
-    port's and torch's), and the pool it allocated from."""
+    port's and torch's), the rows its per-bank kernels are launched on, and
+    the pool it allocated from."""
 
-    __slots__ = ("graph", "inputs", "output", "launches", "kernels", "pool")
+    __slots__ = ("graph", "inputs", "output", "launches", "kernels", "bank_rows", "pool")
 
     def __init__(self, graph, inputs: tuple, output: torch.Tensor,
-                 launches: dict[str, int], kernels: int, pool: _GraphPool):
+                 launches: dict[str, int], kernels: int, bank_rows: int, pool: _GraphPool):
         self.graph = graph
         self.inputs = inputs
         self.output = output
         self.launches = launches
         self.kernels = kernels
+        self.bank_rows = bank_rows
         self.pool = pool
 
 
@@ -421,7 +423,8 @@ class ExecutionPlan:
     pool's lock from its copy-in until its output copy is
     enqueued; each graph's kernel launches, tallied at capture, are added
     to the launch counters at every replay, and the kernel nodes it holds,
-    counted once at capture, to :attr:`graph_kernels`. A failed capture
+    counted once at capture, to :attr:`graph_kernels`, as are the rows its
+    per-bank kernels take to :attr:`bank_rows`. A failed capture
     raises; it never becomes an eager run. ``jit=False`` runs the forward
     eagerly on the unpadded inputs (the reference's keyword for its eager
     path), and on the CPU every call runs eagerly with the same trace and
@@ -479,8 +482,10 @@ class ExecutionPlan:
         self._rows: dict[tuple[str, int], list] = {}        # guarded-by: _lock
         self._calls = 0                                     # guarded-by: _lock
         self._graphs: dict[tuple, _Graph] = {}              # guarded-by: _lock
-        # kernel nodes of every graph replayed, each replay counted
+        # kernel nodes of every graph replayed, and the rows its per-bank
+        # kernels were launched on, each replay counted
         self._graph_kernels = 0                             # guarded-by: _lock
+        self._bank_rows = 0                                 # guarded-by: _lock
         # per (device, stream): the graphs' memory pool and replay lock
         # (touched under _CAPTURE_LOCK only)
         self._pools: dict[tuple, _GraphPool] = {}
@@ -532,6 +537,17 @@ class ExecutionPlan:
         a call that captures count nothing."""
         with self._lock:
             return self._graph_kernels
+
+    @property
+    def bank_rows(self) -> int:
+        """Rows the plan's graph replays launched the per-bank kernels
+        (``fuzzy_lut``, ``fuzzy_lut_q8``) on, bucket padding included: each
+        graph's rows, summed over its per-bank steps at capture (a bucket
+        times the step's rows a flow), once per replay. Fused stacks, the
+        plain backends, eager calls, the CPU and a call that captures count
+        nothing."""
+        with self._lock:
+            return self._bank_rows
 
     def _padded(self, x, bucket: int, device: torch.device) -> torch.Tensor:
         x = torch.as_tensor(x, device=device)
@@ -672,6 +688,7 @@ class ExecutionPlan:
             g = self._graphs.get(key)
             if g is not None:
                 self._graph_kernels += g.kernels
+                self._bank_rows += g.bank_rows
         if g is None:
             y = self._capture(key, be, bucket, b, dev, state, srcs, stream, count,
                               non_blocking=into is not None)
@@ -683,6 +700,7 @@ class ExecutionPlan:
             with self._lock:         # a racing call captured it first
                 g = self._graphs[key]
                 self._graph_kernels += g.kernels
+                self._bank_rows += g.bank_rows
         with g.pool.lock:
             for buf, x in zip(g.inputs, srcs):
                 n = len(x)           # b rows, or up to the bucket's with zero padding
@@ -704,10 +722,11 @@ class ExecutionPlan:
         """First call at ``key``: fill new static inputs (``non_blocking``
         from a pinned slot), run the forward once eagerly on the capture
         stream (its output answers this call), then capture it into a graph
-        and count its kernel nodes before instantiating it. Python's cyclic
-        collector is paused for the capture: it could destroy an old graph
-        or free a pinned buffer in the middle of it, CUDA calls that a
-        thread-local capture refuses, and the capture would fail. Returns
+        and count its kernel nodes and its per-bank kernels' rows before
+        instantiating it. Python's cyclic collector is paused for the
+        capture: it could destroy an old graph or free a pinned buffer in
+        the middle of it, CUDA calls that a thread-local capture refuses,
+        and the capture would fail. Returns
         None when a racing call captured ``key`` first."""
         apply = lambda step, x: step.apply(x, be)
         with _CAPTURE_LOCK, torch.cuda.device(dev):
@@ -729,20 +748,29 @@ class ExecutionPlan:
             with torch.cuda.stream(side), torch.no_grad():
                 warm = self._forward(apply, state, *static)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
+            bank_rows = 0
+
+            def counted(step, x):
+                nonlocal bank_rows
+                if isinstance(step, CompiledBank) and be in ("kernel", "kernel_q8"):
+                    bank_rows += x.numel() // x.shape[-1]    # one kernel row an input row
+                return step.apply(x, be)
+
             collecting = gc.isenabled()
             gc.disable()
             try:
                 with _lib.recording() as tally, torch.no_grad():
                     with torch.cuda.graph(graph, pool=pool.handle, stream=side,
                                           capture_error_mode="thread_local"):
-                        out = self._forward(apply, state, *static)
+                        out = self._forward(counted, state, *static)
             finally:
                 if collecting:
                     gc.enable()
             kernels = _lib.graph_kernel_nodes(graph.raw_cuda_graph())
             graph.instantiate()
             with self._lock:
-                self._graphs[key] = _Graph(graph, static, out, dict(tally), kernels, pool)
+                self._graphs[key] = _Graph(graph, static, out, dict(tally), kernels,
+                                           bank_rows, pool)
                 if count:
                     self._note_trace(be, bucket)
         stream.wait_stream(side)

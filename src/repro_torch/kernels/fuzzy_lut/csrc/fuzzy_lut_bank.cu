@@ -8,6 +8,7 @@
 // the selected LUT rows read through L1 with every term of a column in
 // flight before the ordered adds.
 
+#define F32_KERNEL fuzzy_lut_f32_bank_kernel
 #include "fuzzy_lut_f32.cuh"
 
 extern "C" int fuzzy_lut_f32(const float* x, const int* feat, const float* thr,

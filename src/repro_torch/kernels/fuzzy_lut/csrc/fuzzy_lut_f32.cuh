@@ -1,6 +1,9 @@
 // f32 fuzzy-LUT kernel for Hopper, shared by the per-bank entry
 // (fuzzy_lut_bank.cu, one layer, no bias) and the stacked entry
-// (fuzzy_lut_stack.cu, L layers with bias).
+// (fuzzy_lut_stack.cu, L layers with bias). Each source defines F32_KERNEL,
+// the name of its __global__ entry, before it includes this header, so a
+// device trace names the per-bank launches (fuzzy_lut_f32_bank_kernel) and
+// the stacked ones (fuzzy_lut_f32_stack_kernel) apart over one body.
 //
 // Replaces the Pallas kernels src/repro/kernels/fuzzy_lut/kernel.py
 // fuzzy_lut_pallas and fuzzy_lut_stack_pallas.
@@ -50,6 +53,10 @@
 //     that the MLP-B bucket-4096 batch fills the card in one wave (128
 //     blocks of 32 rows on 132 SMs).
 #pragma once
+
+#ifndef F32_KERNEL
+#error "define F32_KERNEL, the name of the entry's __global__ function, before the include"
+#endif
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,14 +131,14 @@ __device__ __forceinline__ int2 f32_tree_word(const int2* tr, const int* feat_l,
 // chain of 16 predicated loads per read).
 template <bool kTrees, bool kRegs>
 __global__ void __launch_bounds__(F32_MAX_THREADS, 1)
-fuzzy_lut_f32_kernel(const float* __restrict__ x,      // [T, K0, v]
-                     const int* __restrict__ feat,     // [L, Kmax, I]
-                     const float* __restrict__ thr,    // [L, Kmax, I]
-                     const float* __restrict__ lut,    // [L, Kmax, C, Nmax]
-                     const float* __restrict__ bias,   // [L, Nmax] or null
-                     float* __restrict__ y,            // [T, n_out]
-                     int* __restrict__ leaves,         // [L, T, Kmax] or null
-                     int T, const __grid_constant__ F32Geom g) {
+F32_KERNEL(const float* __restrict__ x,      // [T, K0, v]
+           const int* __restrict__ feat,     // [L, Kmax, I]
+           const float* __restrict__ thr,    // [L, Kmax, I]
+           const float* __restrict__ lut,    // [L, Kmax, C, Nmax]
+           const float* __restrict__ bias,   // [L, Nmax] or null
+           float* __restrict__ y,            // [T, n_out]
+           int* __restrict__ leaves,         // [L, T, Kmax] or null
+           int T, const __grid_constant__ F32Geom g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = g.L;
   const int I = (1 << g.depth) - 1;
@@ -275,12 +282,12 @@ static int f32_launch_as(const float* x, const int* feat, const float* thr,
   static int opted_in = 48 * 1024;
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fuzzy_lut_f32_kernel<kTrees, kRegs>,
+        F32_KERNEL<kTrees, kRegs>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
-  fuzzy_lut_f32_kernel<kTrees, kRegs>
+  F32_KERNEL<kTrees, kRegs>
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
           x, feat, thr, lut, bias, y, leaves, T, g);
   return static_cast<int>(cudaGetLastError());

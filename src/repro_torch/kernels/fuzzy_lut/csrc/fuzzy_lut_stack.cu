@@ -10,6 +10,7 @@
 // node-major into shared memory at the start, one commit group per layer,
 // so later layers' trees land while earlier layers compute.
 
+#define F32_KERNEL fuzzy_lut_f32_stack_kernel
 #include "fuzzy_lut_f32.cuh"
 
 extern "C" int fuzzy_lut_stack_f32(const float* x, const int* feat,

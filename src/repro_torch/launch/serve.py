@@ -1299,7 +1299,9 @@ class MultiModelServer:
         # registry names and plans BEFORE the counter lock: registry._lock
         # ranks outside serve._ctr_lock
         names = self.models()
-        graph_kernels = sum(plan.graph_kernels for plan in self.registry.plans())
+        plans = self.registry.plans()
+        graph_kernels = sum(plan.graph_kernels for plan in plans)
+        bank_rows = sum(plan.bank_rows for plan in plans)
         with self._ctr_lock:
             per_model = {name: {**zeros, **self._counters.get(name, {})}
                          for name in names}
@@ -1337,6 +1339,7 @@ class MultiModelServer:
                 "h2d_staged_bytes": h2d_staged_bytes,
                 "chunks_direct": chunks_direct,
                 "graph_kernels": graph_kernels,
+                "bank_rows": bank_rows,
                 "rounds": rounds,
                 "rounds_overlapped": rounds_overlapped,
                 "models": per_model,

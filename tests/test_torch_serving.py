@@ -513,7 +513,8 @@ def test_stats_schema_matches_reference(models, kind):
     # beyond the reference's schema the port counts the bytes it copies
     # from pageable host memory and through its pinned stage, the chunks
     # whose data crossed the plan boundary once each way, the kernels its
-    # plans' graph replays launched, the rounds it finished and of them
+    # plans' graph replays launched and the rows they launched the per-bank
+    # kernels on, the rounds it finished and of them
     # those it overlapped with the next, and each plan's rows per bucket,
     # keyed as pad_waste is
     plans = ({(): st["engine"]} if kind == "pegasus" else
@@ -522,6 +523,7 @@ def test_stats_schema_matches_reference(models, kind):
                                              ("serving", "h2d_staged_bytes"),
                                              ("serving", "chunks_direct"),
                                              ("serving", "graph_kernels"),
+                                             ("serving", "bank_rows"),
                                              ("serving", "rounds"),
                                              ("serving", "rounds_overlapped")}
     for at, plan_st in plans.items():
